@@ -1,0 +1,107 @@
+"""Masked, statically shaped linear algebra for GP inference (port of
+``turbojax.linalg``, main-path part).
+
+A growing training set is carried as an ``(N_max, ·)`` buffer plus an
+active count. Masked kernel matrices are identity-padded, so the Cholesky
+factor of the padded matrix is ``[chol(K_active), I]``; masked right-hand
+sides are zero-padded, so triangular solves leave inactive rows at 0; the
+masked log-determinant gets log 1 = 0 from inactive rows.
+
+Failure semantics differ from JAX's and are made equal here:
+``jnp.linalg.cholesky`` returns NaN when the factorization fails, while
+``torch.linalg.cholesky`` raises and ``torch.linalg.cholesky_ex`` returns a
+partial, finite factor beside an ``info`` code. Every ladder below keys on
+``info``, and a failed factor is filled with NaN, never kept.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def row_mask(n_max: int, n, device=None) -> Tensor:
+    """Boolean (n_max,) mask with the first ``n`` entries active."""
+    return torch.arange(n_max, device=device) < n
+
+
+def mask_kernel_matrix(k_mat: Tensor, mask: Tensor) -> Tensor:
+    """Identity-pad a kernel matrix outside the active block."""
+    both = mask[:, None] & mask[None, :]
+    eye = torch.eye(k_mat.shape[-1], dtype=k_mat.dtype, device=k_mat.device)
+    return torch.where(both, k_mat, eye)
+
+
+def mask_cross_matrix(k_cross: Tensor, mask: Tensor) -> Tensor:
+    """Zero the rows of a train×candidate cross-covariance for inactive
+    training points."""
+    return torch.where(mask[:, None], k_cross, torch.zeros_like(k_cross))
+
+
+def cholesky_nan(a: Tensor) -> Tuple[Tensor, Tensor]:
+    """``cholesky_ex`` with JAX's failure semantics: every matrix of the
+    batch whose factorization failed (``info != 0``) comes back NaN in its
+    lower triangle (0 above, as ``jnp.linalg.cholesky`` returns it).
+    Returns (factor, info)."""
+    l_mat, info = torch.linalg.cholesky_ex(a)
+    failed = (info != 0)[..., None, None]
+    return torch.where(failed, torch.full_like(l_mat, torch.nan).tril(), l_mat), info
+
+
+def _bumped(k_mat: Tensor, rel: float) -> Tensor:
+    n = k_mat.shape[-1]
+    scale = k_mat.diagonal(dim1=-2, dim2=-1).mean(dim=-1)
+    eye = torch.eye(n, dtype=k_mat.dtype, device=k_mat.device)
+    return k_mat + (rel * scale)[..., None, None] * eye
+
+
+def cholesky_jittered(k_mat: Tensor, jitter: float) -> Tensor:
+    """Cholesky of ``k_mat + jitter·mean(diag)·I``: the fixed-jitter path of
+    the batched grid fit. A failed batch row comes back NaN (no host sync)."""
+    return cholesky_nan(_bumped(k_mat, jitter))[0]
+
+
+def safe_cholesky(k_mat: Tensor, jitters: Tuple[float, ...] = (0.0, 1e-8, 1e-6, 1e-4)) -> Tensor:
+    """Cholesky with an escalating relative-jitter ladder: the first rung
+    whose factorization succeeds (``info == 0``) wins; the last rung's
+    factor is returned whatever happens, NaN if it failed too. One host
+    sync per rung tried (one in the common case)."""
+    for rel in jitters[:-1]:
+        l_mat, info = cholesky_nan(_bumped(k_mat, rel))
+        if not bool((info != 0).any()):
+            return l_mat
+    return cholesky_nan(_bumped(k_mat, jitters[-1]))[0]
+
+
+def _as_matrix(b: Tensor, l_mat: Tensor) -> Tuple[Tensor, bool]:
+    vec = b.dim() == l_mat.dim() - 1
+    return (b.unsqueeze(-1) if vec else b), vec
+
+
+def solve_lower(l_mat: Tensor, b: Tensor) -> Tensor:
+    """x = L⁻¹ b with L lower-triangular; b is a vector or a matrix."""
+    bm, vec = _as_matrix(b, l_mat)
+    x = torch.linalg.solve_triangular(l_mat, bm, upper=False)
+    return x.squeeze(-1) if vec else x
+
+
+def solve_upper_t(l_mat: Tensor, b: Tensor) -> Tensor:
+    """x = L⁻ᵀ b with L lower-triangular."""
+    bm, vec = _as_matrix(b, l_mat)
+    x = torch.linalg.solve_triangular(l_mat.mT, bm, upper=True)
+    return x.squeeze(-1) if vec else x
+
+
+def cho_solve(l_mat: Tensor, b: Tensor) -> Tensor:
+    """x = (L Lᵀ)⁻¹ b."""
+    return solve_upper_t(l_mat, solve_lower(l_mat, b))
+
+
+def masked_logdet_from_chol(l_mat: Tensor, mask: Tensor) -> Tensor:
+    """log|K_active| from the identity-padded factor."""
+    diag = l_mat.diagonal(dim1=-2, dim2=-1)
+    safe = torch.where(mask, diag, torch.ones_like(diag))
+    return 2.0 * torch.log(safe).sum(dim=-1)
