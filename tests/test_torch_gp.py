@@ -141,6 +141,13 @@ def test_gp_state_round_trips_through_convert(rng):
 
 @pytest.mark.parametrize("optimizer", ["lbfgs", "adam", "grid+adam"])
 def test_unported_trainers_raise(optimizer, rng):
+    """The trainers off the ported paths raise; grid+adam is ported, and its
+    dual polish (``grid_polish_both``) and early-stop lane are not."""
     x, y, _ = _problem(rng)
-    with pytest.raises(NotImplementedError):
-        TG.fit_gp(torch.as_tensor(x), torch.as_tensor(y), TL.row_mask(N_MAX, N), GPConfig(fit_optimizer=optimizer))
+    configs = [GPConfig(fit_optimizer=optimizer)]
+    if optimizer == "grid+adam":
+        configs = [GPConfig(fit_optimizer=optimizer, grid_polish_both=True),
+                   GPConfig(fit_optimizer=optimizer, fit_ftol=1e-3)]
+    for config in configs:
+        with pytest.raises(NotImplementedError):
+            TG.fit_gp(torch.as_tensor(x), torch.as_tensor(y), TL.row_mask(N_MAX, N), config)

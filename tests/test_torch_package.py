@@ -32,7 +32,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import sys, importlib\n"
         "mods = ['turbojax_torch', 'chip_smoke'] + ['turbojax_torch.' + m for m in ("
         "'acq', 'api', 'benchmarks', 'config', 'convert', 'cuda_kernels', 'gp', 'kernels', "
-        "'linalg', 'registry', 'sampling', 'transforms', 'trust_region')]\n"
+        "'linalg', 'registry', 'sampling', 'transforms', 'trust_region', 'turbo_m', 'profile_config5')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'turbojax', 'optax')]\n"
         "print(bad)\n"

@@ -6,6 +6,8 @@ side; this module imports no JAX) and return the port's NamedTuples of
 tensors on a given device, floating leaves cast to ``dtype``. The
 ``*_to_numpy`` inverses return the port's NamedTuples with numpy leaves.
 Fields the port does not carry (the JAX ``TurboCarry.key``) are dropped.
+TuRBO-m carries (a leading TR axis on every leaf) convert with the same
+functions; their ``n`` becomes a tuple of host ints, and back an array.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ def turbo_carry_from_numpy(c, device=None, dtype=torch.float64) -> TurboCarry:
     return TurboCarry(
         x_buf=_tensor(c.x_buf, device, dtype),
         y_buf=_tensor(c.y_buf, device, dtype),
-        n=int(np.asarray(c.n)),
+        n=int(np.asarray(c.n)) if np.ndim(c.n) == 0 else tuple(int(v) for v in np.asarray(c.n)),
         raw=gp_params_from_numpy(c.raw, device, dtype),
         tr=tr_state_from_numpy(c.tr, device, dtype),
         init_stream=_tensor(c.init_stream, device, dtype),
@@ -79,7 +81,7 @@ def turbo_carry_from_numpy(c, device=None, dtype=torch.float64) -> TurboCarry:
 
 def turbo_carry_to_numpy(c: TurboCarry) -> TurboCarry:
     return TurboCarry(
-        x_buf=_numpy(c.x_buf), y_buf=_numpy(c.y_buf), n=c.n,
+        x_buf=_numpy(c.x_buf), y_buf=_numpy(c.y_buf), n=c.n if isinstance(c.n, int) else np.asarray(c.n),
         raw=gp_params_to_numpy(c.raw),
         tr=TRState(*(_numpy(a) for a in c.tr)),
         init_stream=_numpy(c.init_stream), best_x=_numpy(c.best_x), best_y=_numpy(c.best_y),

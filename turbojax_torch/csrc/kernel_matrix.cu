@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_fn.cuh"
+
 namespace {
 
 constexpr int TILE = 32;             // output tile is TILE x TILE
@@ -40,33 +42,6 @@ constexpr int ROWS_PER_THREAD = 4;   // each thread owns 4 rows of one column
 constexpr int THREADS = TILE * TILE / ROWS_PER_THREAD;  // 256
 constexpr int ROW_STEP = THREADS / TILE;                 // 8
 constexpr int KC = 16;               // features staged per shared-memory step
-
-enum KernelId { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3 };
-
-__device__ __forceinline__ float dev_exp(float x) { return expf(x); }
-__device__ __forceinline__ double dev_exp(double x) { return exp(x); }
-__device__ __forceinline__ float dev_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double dev_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float dev_fma(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double dev_fma(double a, double b, double c) { return fma(a, b, c); }
-
-// Same expression order as turbojax.kernels (outputscale * poly * exp).
-template <typename T, int KID>
-__device__ __forceinline__ T kernel_fn(T d2, T outputscale) {
-  if (KID == RBF) {
-    return outputscale * dev_exp(T(-0.5) * d2);
-  }
-  const T r = dev_sqrt(d2 + T(1e-30));
-  if (KID == MATERN12) {
-    return outputscale * dev_exp(-r);
-  } else if (KID == MATERN32) {
-    const T sr = T(1.7320508075688772) * r;
-    return outputscale * (T(1) + sr) * dev_exp(-sr);
-  } else {
-    const T sr = T(2.23606797749979) * r;
-    return outputscale * (T(1) + sr + (T(5) / T(3)) * d2) * dev_exp(-sr);
-  }
-}
 
 template <typename T, int KID, bool NOISE>
 __global__ void __launch_bounds__(THREADS)

@@ -1,21 +1,28 @@
-"""The hand-written CUDA kernel-matrix build and its plain PyTorch version
-(port of ``turbojax.pallas_kernels``).
+"""The hand-written CUDA kernels and their plain PyTorch versions (port of
+``turbojax.pallas_kernels``).
 
-``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise)`` is the
-wrapper every kernel-matrix build of the GP goes through:
+Two kernels, each in its own source under ``csrc/`` and its own shared
+library, built for sm_90a with ``nvcc`` on first use (all sources at once,
+one ``nvcc`` each, started together) and bound with ``ctypes``:
 
-* on CUDA tensors it launches ``csrc/kernel_matrix.cu`` (built for sm_90a
-  with ``nvcc`` on first use, bound with ``ctypes``) or raises;
-* on CPU tensors it computes the plain version ``kernel_matrix_reference``,
-  the twin of ``turbojax.pallas_kernels._jnp_reference_kernel``.
+* ``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise)``,
+  ``csrc/kernel_matrix.cu``: every kernel-matrix build of the GP goes
+  through it; its plain version is ``kernel_matrix_reference``, the twin of
+  ``turbojax.pallas_kernels._jnp_reference_kernel``;
+* ``ts_cov(zs, v, outputscale, jitter, kernel_name)``, ``csrc/ts_cov.cu``:
+  the Thompson-chunk covariance k(zs, zs) − vᵀv + jitter·I of
+  ``turbojax.pallas_kernels.fused_ts_cov``; its plain version is
+  ``ts_cov_reference``.
 
-There is no fallback from one to the other. Gradients go through
-``torch.autograd.Function``: the forward is the kernel, the backward
-recomputes the plain version under autograd, as the JAX package's
-``custom_jvp`` does (a backward kernel is later work).
+On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
+computes the plain version. There is no fallback from one to the other.
+Gradients of the kernel matrix go through ``torch.autograd.Function``: the
+forward is the kernel, the backward recomputes the plain version under
+autograd, as the JAX package's ``custom_jvp`` does. ``ts_cov`` takes no
+gradient (nothing on the path differentiates a Thompson draw).
 
-``LAUNCHES`` counts the kernel's launches, so that a run can show that its
-main path went through the kernel.
+``LAUNCHES`` and ``TS_COV_LAUNCHES`` count each kernel's launches, so that
+a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -35,12 +42,15 @@ from turbojax_torch import kernels as K
 
 Tensor = torch.Tensor
 
-#: Launches of the CUDA kernel since import (or since a caller reset it).
+#: Launches of the kernel-matrix kernel since import (or since a caller reset it).
 LAUNCHES = 0
+#: Launches of the TS-covariance kernel since import (or since a caller reset it).
+TS_COV_LAUNCHES = 0
 
 KERNEL_IDS = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
-_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc", "kernel_matrix.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SOURCES = ("kernel_matrix", "ts_cov")  # csrc/<name>.cu -> lib<name>_<digest>.so
 _BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "turbojax_torch"
 )
@@ -50,8 +60,9 @@ _NVCC_FLAGS = (
 )
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (batch)
 _TILE = 32  # output tile of csrc/kernel_matrix.cu
+_TS_TILE = 64  # output tile of csrc/ts_cov.cu
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -73,51 +84,84 @@ def available() -> bool:
     return torch.cuda.is_available() and _find_nvcc() is not None
 
 
-def library_path() -> str:
-    """Where the shared library for the current sources lives: the name
-    carries a hash of the source and the flags, so a changed source rebuilds."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libkernel_matrix_{digest}.so")
+def _digest() -> str:
+    """Hash of every file under ``csrc/`` (sources and headers) and the
+    flags: a change to any of them rebuilds every library."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(_CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
 
 
-def _load() -> ctypes.CDLL:
-    build()
-    return _lib
+def library_path(name: str) -> str:
+    """Where the shared library of ``csrc/<name>.cu`` lives for the current
+    sources."""
+    return os.path.join(_BUILD_DIR, f"lib{name}_{_digest()}.so")
 
 
-def build() -> str:
-    """Compile ``csrc/kernel_matrix.cu`` into ``build/turbojax_torch/`` if it
-    is not there yet, load it, and return its path. Raises on any failure."""
-    global _lib
+def _bind(lib: ctypes.CDLL, name: str) -> None:
+    launch = getattr(lib, f"{name}_launch")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if name == "kernel_matrix":
+        launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+    else:
+        launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    launch.restype = i32
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [i32]
+    err.restype = ctypes.c_char_p
+
+
+def build() -> Dict[str, str]:
+    """Compile every ``csrc/<name>.cu`` whose library is not there yet into
+    ``build/turbojax_torch/`` (one ``nvcc`` per source, all started
+    together), load them all, and return {name: path}. Raises on any
+    failure."""
     with _lib_lock:
-        path = library_path()
-        if _lib is not None and getattr(_lib, "_path", None) == path:
-            return path
-        if not os.path.exists(path):
+        paths = {name: library_path(name) for name in _SOURCES}
+        if all(getattr(_libs.get(n), "_path", None) == p for n, p in paths.items()):
+            return paths
+        missing = {n: p for n, p in paths.items() if not os.path.exists(p)}
+        if missing:
             nvcc = _find_nvcc()
             if nvcc is None:
-                raise RuntimeError("nvcc not found (PATH, CUDA_HOME): cannot build the CUDA kernel")
+                raise RuntimeError("nvcc not found (PATH, CUDA_HOME): cannot build the CUDA kernels")
             os.makedirs(_BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, _SOURCE], capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
-        lib.kernel_matrix_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.kernel_matrix_launch.restype = ctypes.c_int
-        lib.kernel_matrix_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_matrix_error_string.restype = ctypes.c_char_p
-        lib._path = path
-        _lib = lib
-        return path
+            procs = {}
+            for name in missing:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+                os.close(fd)
+                src = os.path.join(_CSRC, f"{name}.cu")
+                procs[name] = (tmp, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                ))
+            failures = []
+            for name, (tmp, proc) in procs.items():
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    os.unlink(tmp)
+                    failures.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}\n{err}")
+                else:
+                    os.replace(tmp, missing[name])
+            if failures:
+                raise RuntimeError("\n".join(failures))
+        for name, path in paths.items():
+            lib = ctypes.CDLL(path)
+            _bind(lib, name)
+            lib._path = path
+            _libs[name] = lib
+        return paths
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        build()
+        lib = _libs[name]
+    return lib
 
 
 def kernel_matrix_reference(
@@ -170,7 +214,7 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
         torch.as_tensor(outputscale, dtype=z1.dtype, device=z1.device).expand(batch),
         torch.as_tensor(noise, dtype=z1.dtype, device=z1.device).expand(batch),
     ], dim=-1).contiguous()
-    lib = _lib if _lib is not None else _load()
+    lib = _load("kernel_matrix")
     with torch.cuda.device(z1.device):
         stream = torch.cuda.current_stream(z1.device).cuda_stream
         err = lib.kernel_matrix_launch(
@@ -237,3 +281,76 @@ def kernel_matrix(
     outputscale = torch.as_tensor(outputscale, dtype=z1.dtype, device=z1.device)
     noise = torch.as_tensor(noise, dtype=z1.dtype, device=z1.device)
     return KernelMatrix.apply(z1, z2, outputscale, noise, kernel_name, add_noise)
+
+
+def ts_cov_reference(
+    zs: Tensor, v: Tensor, outputscale, jitter, kernel_name: str = "matern52",
+) -> Tensor:
+    """The plain PyTorch version of the TS-chunk covariance on pre-scaled,
+    centered candidates: ``k(zs, zs) − vᵀv + jitter·I``. Inputs are
+    (m, d)/(n, m) or batched (B, m, d)/(B, n, m); ``outputscale`` and
+    ``jitter`` are scalars or (B,)."""
+    jitter = torch.as_tensor(jitter, dtype=zs.dtype, device=zs.device)
+    if zs.dim() == 3:
+        jitter = jitter.reshape(-1, 1, 1)
+    k = kernel_matrix_reference(zs, zs, outputscale, 0.0, kernel_name, False)
+    eye = torch.eye(zs.shape[-2], dtype=zs.dtype, device=zs.device)
+    return k - v.mT @ v + jitter * eye
+
+
+def _check_ts(zs: Tensor, v: Tensor, kernel_name: str):
+    if kernel_name not in KERNEL_IDS:
+        raise ValueError(f"unknown kernel {kernel_name!r}; available: {sorted(KERNEL_IDS)}")
+    if zs.dim() not in (2, 3) or v.dim() != zs.dim():
+        raise ValueError(f"expected (m, d)/(n, m) or (B, m, d)/(B, n, m); got {tuple(zs.shape)}, {tuple(v.shape)}")
+    if v.shape[-1] != zs.shape[-2] or v.shape[:-2] != zs.shape[:-2]:
+        raise ValueError(f"batch or candidate sizes differ: {tuple(zs.shape)} vs {tuple(v.shape)}")
+    if zs.dtype != v.dtype or zs.device != v.device:
+        raise ValueError(f"zs and v differ in dtype or device: {zs.dtype}/{zs.device} vs {v.dtype}/{v.device}")
+
+
+def _launch_ts_cov(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, kernel_name: str) -> Tensor:
+    """Launch the CUDA kernel on (B, m, d) x (B, n, m) CUDA tensors."""
+    global TS_COV_LAUNCHES
+    if zs.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA kernel takes float32 or float64, not {zs.dtype}")
+    zs, v = zs.contiguous(), v.contiguous()
+    batch, m, d = zs.shape
+    n = v.shape[1]
+    if batch > _MAX_GRID_YZ or (m + _TS_TILE - 1) // _TS_TILE > _MAX_GRID_YZ or max(n, m, d) >= 2**31:
+        raise ValueError(f"shape too large for the CUDA kernel: batch {batch}, m {m}, n {n}, d {d}")
+    out = torch.empty((batch, m, m), dtype=zs.dtype, device=zs.device)
+    if out.numel() == 0:
+        return out
+    scal = torch.stack([outputscale.expand(batch), jitter.expand(batch)], dim=-1).contiguous()
+    lib = _load("ts_cov")
+    with torch.cuda.device(zs.device):
+        stream = torch.cuda.current_stream(zs.device).cuda_stream
+        err = lib.ts_cov_launch(
+            zs.data_ptr(), v.data_ptr(), scal.data_ptr(), out.data_ptr(),
+            batch, m, n, d, KERNEL_IDS[kernel_name], int(zs.dtype == torch.float64), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ts_cov launch failed: {lib.ts_cov_error_string(err).decode()} ({err})")
+    TS_COV_LAUNCHES += 1
+    return out
+
+
+def ts_cov(zs: Tensor, v: Tensor, outputscale, jitter, kernel_name: str = "matern52") -> Tensor:
+    """Cov = k(zs, zs) − vᵀv + jitter·I for pre-scaled, centered candidates
+    zs and the forward solve v = L⁻¹K(X, zs): (m, d)/(n, m) -> (m, m) or
+    batched (B, m, d)/(B, n, m) -> (B, m, m), with ``outputscale``/``jitter``
+    scalars or (B,) tensors.
+
+    CUDA tensors go through ``csrc/ts_cov.cu`` (or raise); CPU tensors
+    through ``ts_cov_reference``."""
+    _check_ts(zs, v, kernel_name)
+    outputscale = torch.as_tensor(outputscale, dtype=zs.dtype, device=zs.device)
+    jitter = torch.as_tensor(jitter, dtype=zs.dtype, device=zs.device)
+    if zs.device.type == "cpu":
+        return ts_cov_reference(zs, v, outputscale, jitter, kernel_name)
+    if zs.device.type != "cuda":
+        raise ValueError(f"ts_cov runs on CUDA or CPU tensors, not {zs.device}")
+    if zs.dim() == 2:
+        return _launch_ts_cov(zs[None], v[None], outputscale, jitter, kernel_name)[0]
+    return _launch_ts_cov(zs, v, outputscale, jitter, kernel_name)

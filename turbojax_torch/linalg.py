@@ -29,16 +29,17 @@ def row_mask(n_max: int, n, device=None) -> Tensor:
 
 
 def mask_kernel_matrix(k_mat: Tensor, mask: Tensor) -> Tensor:
-    """Identity-pad a kernel matrix outside the active block."""
-    both = mask[:, None] & mask[None, :]
+    """Identity-pad a kernel matrix outside the active block. ``mask`` is
+    (N,) or carries the matrices' leading batch dimensions, (..., N)."""
+    both = mask[..., :, None] & mask[..., None, :]
     eye = torch.eye(k_mat.shape[-1], dtype=k_mat.dtype, device=k_mat.device)
     return torch.where(both, k_mat, eye)
 
 
 def mask_cross_matrix(k_cross: Tensor, mask: Tensor) -> Tensor:
     """Zero the rows of a train×candidate cross-covariance for inactive
-    training points."""
-    return torch.where(mask[:, None], k_cross, torch.zeros_like(k_cross))
+    training points (``mask`` (N,) or (..., N), as above)."""
+    return torch.where(mask[..., :, None], k_cross, torch.zeros_like(k_cross))
 
 
 def cholesky_nan(a: Tensor) -> Tuple[Tensor, Tensor]:
@@ -65,15 +66,21 @@ def cholesky_jittered(k_mat: Tensor, jitter: float) -> Tensor:
 
 
 def safe_cholesky(k_mat: Tensor, jitters: Tuple[float, ...] = (0.0, 1e-8, 1e-6, 1e-4)) -> Tensor:
-    """Cholesky with an escalating relative-jitter ladder: the first rung
-    whose factorization succeeds (``info == 0``) wins; the last rung's
-    factor is returned whatever happens, NaN if it failed too. One host
-    sync per rung tried (one in the common case)."""
-    for rel in jitters[:-1]:
-        l_mat, info = cholesky_nan(_bumped(k_mat, rel))
-        if not bool((info != 0).any()):
-            return l_mat
-    return cholesky_nan(_bumped(k_mat, jitters[-1]))[0]
+    """Cholesky with an escalating relative-jitter ladder: for each matrix
+    of the batch the first rung whose factorization succeeds
+    (``info == 0``) wins, so one failing matrix never changes another's
+    factor; a matrix that fails the last rung comes back NaN. The next rung
+    runs only while some matrix still fails: one host sync per rung tried
+    (one in the common case)."""
+    l_mat, info = cholesky_nan(_bumped(k_mat, jitters[0]))
+    for rel in jitters[1:]:
+        failed = info != 0
+        if not bool(failed.any()):
+            break
+        l_next, info_next = cholesky_nan(_bumped(k_mat, rel))
+        l_mat = torch.where(failed[..., None, None], l_next, l_mat)
+        info = torch.where(failed, info_next, info)
+    return l_mat
 
 
 def _as_matrix(b: Tensor, l_mat: Tensor) -> Tuple[Tensor, bool]:

@@ -25,12 +25,13 @@ def from_unit_cube(x: Tensor, lb: Tensor, ub: Tensor) -> Tensor:
 
 
 def masked_mean_std(y: Tensor, mask: Tensor, eps: float = 1e-8):
-    """Mean/std over the active entries of a masked buffer; the std has a
-    floor of ``eps`` so a constant history stays finite."""
+    """Mean/std over the active entries of a masked buffer (over the last
+    axis; leading axes are a batch of buffers); the std has a floor of
+    ``eps`` so a constant history stays finite."""
     w = mask.to(y.dtype)
-    n = torch.clamp_min(w.sum(), 1.0)
-    mean = (y * w).sum() / n
-    var = (w * (y - mean) ** 2).sum() / n
+    n = torch.clamp_min(w.sum(dim=-1), 1.0)
+    mean = (y * w).sum(dim=-1) / n
+    var = (w * (y - mean[..., None]) ** 2).sum(dim=-1) / n
     std = torch.clamp_min(torch.sqrt(var), eps)
     return mean, std
 
@@ -39,7 +40,7 @@ def standardize(y: Tensor, mask: Tensor, eps: float = 1e-8):
     """Standardize the active entries of y; inactive entries are zeroed.
     Returns (y_std, mean, std)."""
     mean, std = masked_mean_std(y, mask, eps)
-    y_std = torch.where(mask, (y - mean) / std, torch.zeros_like(y))
+    y_std = torch.where(mask, (y - mean[..., None]) / std[..., None], torch.zeros_like(y))
     return y_std, mean, std
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from turbojax_torch import acq as A
@@ -108,7 +109,8 @@ def tr_update(state: TRState, improved, counted, tr: TRConfig, fail_tol: int) ->
 
 
 class TurboCarry(NamedTuple):
-    """Loop state of one trust region. ``n`` is a host int."""
+    """Loop state of one trust region; ``n`` is a host int. TuRBO-m stacks
+    the regions on a leading TR axis, and ``n`` is then a tuple of ints."""
 
     x_buf: Tensor  # (N_loc, d) TR-local history, unit cube, zero-padded
     y_buf: Tensor  # (N_loc,)
@@ -123,23 +125,6 @@ class TurboCarry(NamedTuple):
 def _stream_len(cfg: TurboConfig) -> int:
     q = cfg.batch_size
     return ((cfg.n_init + q - 1) // q) * q
-
-
-def _fresh_restart(carry: TurboCarry, generator: torch.Generator, stream_len: int,
-                   tr_cfg: TRConfig) -> TurboCarry:
-    """Discard local history, draw a new LHS stream, reset the TR state."""
-    x = carry.x_buf
-    zero = torch.zeros_like(carry.tr.succ)
-    return carry._replace(
-        x_buf=torch.zeros_like(x),
-        y_buf=torch.zeros_like(carry.y_buf),
-        n=0,
-        tr=TRState(
-            length=torch.tensor(tr_cfg.length_init, dtype=x.dtype, device=x.device),
-            succ=zero, fail=zero, restarts=carry.tr.restarts + 1, stag=zero,
-        ),
-        init_stream=S.latin_hypercube(stream_len, x.shape[-1], generator, x.dtype, x.device),
-    )
 
 
 def make_turbo_carry(dim: int, n_loc: int, cfg: TurboConfig, config: GPConfig,
@@ -204,45 +189,125 @@ def turbo_propose(
     return carry, xs, True
 
 
-def turbo_absorb(
-    carry: TurboCarry, x_new: Tensor, y_new: Tensor, in_search: bool, cfg: TurboConfig,
-    fail_tol: int, generator: Optional[torch.Generator] = None,
+def stack_carries(carries: Sequence[TurboCarry]) -> TurboCarry:
+    """Stack per-region carries on a new leading TR axis (``n`` becomes a
+    tuple of host ints)."""
+    def stack(field):
+        return torch.stack([getattr(c, field) for c in carries])
+
+    return TurboCarry(
+        x_buf=stack("x_buf"), y_buf=stack("y_buf"), n=tuple(c.n for c in carries),
+        raw=G.GPParams(*(torch.stack(a) for a in zip(*(c.raw for c in carries)))),
+        tr=TRState(*(torch.stack(a) for a in zip(*(c.tr for c in carries)))),
+        init_stream=stack("init_stream"), best_x=stack("best_x"), best_y=stack("best_y"),
+    )
+
+
+def carry_lane(carries: TurboCarry, i: int) -> TurboCarry:
+    """Region ``i`` of carries stacked on a leading TR axis."""
+    return TurboCarry(
+        x_buf=carries.x_buf[i], y_buf=carries.y_buf[i], n=carries.n[i],
+        raw=G.GPParams(*(a[i] for a in carries.raw)), tr=TRState(*(a[i] for a in carries.tr)),
+        init_stream=carries.init_stream[i], best_x=carries.best_x[i], best_y=carries.best_y[i],
+    )
+
+
+def absorb(
+    carries: TurboCarry, x_new: Tensor, y_new: Tensor, accept, in_search: Sequence[bool],
+    cfg: TurboConfig, fail_tol: int, generator: Optional[torch.Generator] = None,
+    restart_streams: Optional[Tensor] = None,
 ) -> TurboCarry:
-    """Fold a batch of evaluations into the TR: buffer writes, incumbent
-    update, counter transition, and restart when the region collapses (the
-    restart decision is read back to the host)."""
-    n_loc = carry.x_buf.shape[0]
-    mask_before = L.row_mask(n_loc, carry.n, carry.x_buf.device)
-    local_best_before = torch.where(mask_before, carry.y_buf, torch.inf).min()
+    """Fold one evaluated batch into carries stacked on a leading TR axis
+    (``n`` a tuple of host ints): buffer writes, incumbent update, counter
+    transition, and restart of every region that collapsed.
 
-    k = min(x_new.shape[0], n_loc - carry.n)  # rows that still fit
-    rows = torch.arange(carry.n, carry.n + k, device=carry.x_buf.device)
-    carry = carry._replace(
-        x_buf=carry.x_buf.index_copy(0, rows, x_new[:k]),
-        y_buf=carry.y_buf.index_copy(0, rows, y_new[:k]),
-        n=carry.n + k,
-    )
+    ``accept`` ((m, q) bool, read on the host: it is the allocation the
+    host already holds) credits each region with its own points only:
+    region i writes its accepted rows in batch order up to its capacity,
+    takes its incumbent from them, and counts the step only when it is in
+    its search phase and accepted a point; a search-phase region that the
+    allocation starved still counts toward ``stag``. ``in_search``: one host
+    bool per region. ``restart_streams`` ((m, stream_len, d)) replaces the
+    LHS draws of the regions that restart. The restart decisions are read
+    back to the host, one read for all regions."""
+    x_buf, y_buf = carries.x_buf, carries.y_buf
+    m, n_loc = y_buf.shape
+    device = x_buf.device
+    acc = np.asarray(torch.as_tensor(accept).cpu(), dtype=bool).reshape(m, -1)
+    n_before = torch.tensor(carries.n, device=device)
+    mask_before = torch.arange(n_loc, device=device)[None, :] < n_before[:, None]
+    local_best_before = torch.where(mask_before, y_buf, torch.inf).min(dim=-1).values
 
-    # every evaluated point counts for the global incumbent
-    batch_best = y_new.min()
-    better = batch_best < carry.best_y
-    carry = carry._replace(
-        best_y=torch.where(better, batch_best, carry.best_y),
-        best_x=torch.where(better, x_new.index_select(0, torch.argmin(y_new).reshape(1))[0], carry.best_x),
-    )
+    ns = list(carries.n)
+    regions, slots, rows = [], [], []
+    for i in range(m):
+        take = np.flatnonzero(acc[i])[: n_loc - ns[i]]  # accepted rows that still fit
+        regions += [i] * len(take)
+        slots += range(ns[i], ns[i] + len(take))
+        rows += take.tolist()
+        ns[i] += len(take)
+    if rows:
+        where_to = (torch.tensor(regions, device=device), torch.tensor(slots, device=device))
+        src = torch.tensor(rows, device=device)
+        x_buf = x_buf.index_put(where_to, x_new.index_select(0, src))
+        y_buf = y_buf.index_put(where_to, y_new.index_select(0, src))
+
+    acc_t = torch.as_tensor(acc, device=device)
+    y_masked = torch.where(acc_t, y_new[None, :], torch.inf)
+    batch_best = y_masked.min(dim=-1).values
+    better = batch_best < carries.best_y
+    best_y = torch.where(better, batch_best, carries.best_y)
+    best_x = torch.where(better[:, None], x_new.index_select(0, torch.argmin(y_masked, dim=-1)), carries.best_x)
 
     thresh = local_best_before - cfg.tr.success_eps * torch.abs(local_best_before)
     improved = batch_best < thresh
-    new_tr = tr_update(carry.tr, improved, in_search, cfg.tr, fail_tol)
-    stag = torch.where(improved, 0, carry.tr.stag + 1) if in_search else carry.tr.stag
-    carry = carry._replace(tr=new_tr._replace(stag=stag))
+    searching = torch.tensor(list(in_search), device=device)
+    counted = torch.tensor([bool(s) and bool(a.any()) for s, a in zip(in_search, acc)], device=device)
+    new_tr = tr_update(carries.tr, improved, counted, cfg.tr, fail_tol)
+    stag = torch.where(searching, torch.where(improved, 0, carries.tr.stag + 1), carries.tr.stag)
+    tr = new_tr._replace(stag=stag)
 
-    needs_restart = carry.tr.length < cfg.tr.length_min
+    needs_restart = tr.length < cfg.tr.length_min
     if cfg.tr.stagnation_tol is not None:
-        needs_restart = needs_restart | (carry.tr.stag >= cfg.tr.stagnation_tol)
-    if bool(needs_restart):
-        carry = _fresh_restart(carry, generator, _stream_len(cfg), cfg.tr)
-    return carry
+        needs_restart = needs_restart | (tr.stag >= cfg.tr.stagnation_tol)
+    flags = needs_restart.tolist()
+    init_stream = carries.init_stream
+    if any(flags):
+        r = needs_restart
+        zero = torch.zeros_like(tr.succ)
+        x_buf = torch.where(r[:, None, None], torch.zeros_like(x_buf), x_buf)
+        y_buf = torch.where(r[:, None], torch.zeros_like(y_buf), y_buf)
+        ns = [0 if f else k for f, k in zip(flags, ns)]
+        tr = TRState(
+            length=torch.where(r, torch.full_like(tr.length, cfg.tr.length_init), tr.length),
+            succ=torch.where(r, zero, tr.succ), fail=torch.where(r, zero, tr.fail),
+            restarts=tr.restarts + r.to(tr.restarts.dtype), stag=torch.where(r, zero, tr.stag),
+        )
+        idx = [i for i, f in enumerate(flags) if f]
+        if restart_streams is None:
+            stream_len, dim = init_stream.shape[1:]
+            fresh = torch.stack([
+                S.latin_hypercube(stream_len, dim, generator, init_stream.dtype, device) for _ in idx
+            ])
+        else:
+            fresh = restart_streams[idx].to(init_stream.dtype)
+        init_stream = init_stream.index_copy(0, torch.tensor(idx, device=device), fresh)
+    return carries._replace(
+        x_buf=x_buf, y_buf=y_buf, n=tuple(ns), tr=tr, init_stream=init_stream, best_x=best_x, best_y=best_y,
+    )
+
+
+def turbo_absorb(
+    carry: TurboCarry, x_new: Tensor, y_new: Tensor, in_search: bool, cfg: TurboConfig,
+    fail_tol: int, generator: Optional[torch.Generator] = None, accept=None,
+) -> TurboCarry:
+    """``absorb`` for one trust region. ``accept`` ((q,) bool, default all
+    True as TuRBO-1 passes it) marks the points credited to this region."""
+    if accept is None:
+        accept = np.ones(x_new.shape[0], dtype=bool)
+    accept = np.asarray(torch.as_tensor(accept).cpu(), dtype=bool)[None]
+    out = absorb(stack_carries([carry]), x_new, y_new, accept, [in_search], cfg, fail_tol, generator)
+    return carry_lane(out, 0)
 
 
 def run_turbo1(
