@@ -14,20 +14,32 @@ non-zero and the final line is not printed:
    ``csrc/ts_cov.cu``, for sm_90a (one ``nvcc`` each, started together);
 2. each kernel against its plain PyTorch version on the card, for the four
    kernel functions, float32 and float64: the kernel matrix with and
-   without noise at config 4's shapes plus ragged, d = 60 and clustered
-   inputs; the TS covariance with jitter 0 and 1e-6 at config 5's chunks
-   (5 × 1000 candidates, d = 60, n = 2048 and 512 training rows), ragged
-   (m = 999, n = 1750), d = 10 and a trust region of side 0.5**7 at
-   ℓ = 0.01, to 3e-5·outputscale in f32 (the TS ladder's first rung) and
-   1e-12·outputscale in f64, each version's f32 error against the f64 plain
-   version printed; the kernel-matrix gradients (kernel forward, plain
-   backward) against plain autograd at (16, 2048, 60); then a small GP
+   without noise at config 4's shapes, config 5's grid batches (16 × 2000²
+   and the 64-row batch at the 512 rung), K(Z, Z) at
+   m = 1, 63, 65 and 999 (ragged tiles of the symmetric schedule), ragged
+   cross matrices, d = 60 and clustered inputs; the TS covariance with
+   jitter 0 and 1e-6 at the chunks the paths launch (one 1000-candidate
+   chunk, d = 60 with n = 2000 and 512, d = 10 with n = 1000 and 2048: n
+   split in four, the last split shorter), config 5's five-chunk batches,
+   m = 1, 63, 65 and 999, n = 1 and n = 1750, and a trust region of side
+   0.5**7 at ℓ = 0.01. Tolerances: the kernel matrix rtol 2e-5 / atol 2e-6
+   in f32 and rtol 1e-12 in f64, the TS covariance 3e-5·outputscale in f32
+   (the TS ladder's first rung) and 1e-12·outputscale in f64. For each case
+   the kernel's and the plain version's f32 errors against the f64 plain
+   version are printed, and the kernel's may be no larger; K(Z, Z) and
+   every TS covariance must be bitwise
+   symmetric, two calls bitwise equal, and in f32 the diagonal exact
+   (K(Z, Z)'s is outputscale + noise; ts_cov's kernel term, with v = 0, is
+   outputscale). Then the kernel-matrix gradients (kernel forward, plain
+   backward) against plain autograd at (16, 2048, 60), and a small GP
    problem on the card (float64, through the kernels) against the same
    problem on the CPU (the plain versions);
-3. timings with CUDA events: each kernel against plain at the main paths'
-   shapes, and one ``bench.py``-style iteration (N = 2000 in a 2048 buffer,
-   5000 candidates, EI, Thompson q = 10 in chunks of 1000) with the kernels
-   and with the plain versions;
+3. ``turbojax_torch.kernel_bench``: both kernels at the shapes the paths
+   launch, each against its plain version (CUDA events) with its device
+   time (torch.profiler), its bound and share and, for ts_cov, the time of
+   ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
+   2048 buffer, 5000 candidates, EI, Thompson q = 10 in chunks of 1000)
+   with the kernels and with the plain versions;
 4. config 4 (``turbo1_ackley10``: TuRBO-1, Ackley-10D, 1000 evaluations,
    seed 0) end to end through ``turbojax_torch.optimize``;
 5. config 5 (``turbom5_rover60``: TuRBO-m with m = 5, rover-60D, 2000
@@ -50,7 +62,6 @@ F32_RTOL, F32_ATOL = 2e-5, 2e-6  # as the JAX package's Pallas parity tests
 F64_RTOL = 1e-12
 TS_F32_ATOL = 3e-5  # × outputscale: acq._TS_EPS_RUNGS[0], the TS ladder's first diagonal bump
 TS_F64_ATOL = 1e-12  # × outputscale
-BENCH_N, BENCH_N_MAX, BENCH_D, BENCH_CAND, BENCH_Q, BENCH_CHUNK = 2000, 2048, 10, 5000, 10, 1000
 
 
 def _emit(obj) -> None:
@@ -98,31 +109,40 @@ def _cases(torch, gen):
         c = 0.5 * (z1.mean(dim=-2, keepdim=True) + z2.mean(dim=-2, keepdim=True))
         return z1 - c, z2 - c
 
+    def rows(vals):
+        return torch.tensor(vals, dtype=torch.float64, device=dev)
+
     one = torch.tensor(1.3, dtype=torch.float64, device=dev)
     nz = torch.tensor(1e-3, dtype=torch.float64, device=dev)
     out = []
     # the 15-row grid fit: ℓ ∈ {0.1, 0.25, 0.5, 1.0, 1.9} × noise ∈ {2e-4, 1e-3, 1e-2}
     x = unit(1000, 10)
-    ls = torch.tensor([v for v in (0.1, 0.25, 0.5, 1.0, 1.9) for _ in range(3)], dtype=torch.float64, device=dev)
+    ls = rows([v for v in (0.1, 0.25, 0.5, 1.0, 1.9) for _ in range(3)])
     z = centered(x[None] / ls[:, None, None])
-    noise15 = torch.tensor([2e-4, 1e-3, 1e-2] * 5, dtype=torch.float64, device=dev)
-    out.append(("grid_15x1000x1000_d10", z, z, torch.ones(15, dtype=torch.float64, device=dev), noise15))
+    out.append(("grid_15x1000x1000_d10", z, z, torch.ones(15, dtype=torch.float64, device=dev),
+                rows([2e-4, 1e-3, 1e-2] * 5)))
     ell = math.sqrt(10 / 24)  # typical d² ≈ 4: kernel values neither 0 nor 1
+    ell60 = math.sqrt(60 / 24)
+    # config 5's grid batches: 16 rows at the 2000 rung, 4 regions × 16 rows at the 512 rung
+    z = centered(unit(2000, 60)[None] / (ell60 * rows([0.5, 0.8, 1.0, 1.6] * 4)[:, None, None]))
+    out.append(("grid_16x2000x2000_d60", z, z, rows([1.3, 0.7] * 8), rows([1e-2, 1e-3] * 8)))
+    z = centered(torch.rand((64, 512, 60), generator=gen, device=dev, dtype=torch.float64) / ell60)
+    out.append(("grid_64x512x512_d60", z, z, rows([1.3, 0.7, 2.0, 1.0] * 16), rows([1e-2, 1e-3] * 32)))
+    for m in (1, 63, 65, 999):
+        zc = centered(unit(m, 60) / ell60)
+        out.append((f"kzz_{m}_d60", zc, zc, one, nz))
     z1, z2 = centered(unit(1000, 10) / ell, unit(1000, 10) / ell)
     out.append(("cross_1000x1000_d10", z1, z2, one, nz))
     zc = centered(unit(1000, 10) / ell)
-    out.append(("ts_chunk_1000x1000_d10", zc, zc, one, nz))
-    xb = torch.cat([unit(BENCH_N, 10), torch.zeros(BENCH_N_MAX - BENCH_N, 10, dtype=torch.float64, device=dev)])
-    z1, z2 = centered(xb / ell, unit(BENCH_CAND, 10) / ell)
+    out.append(("kxx_1000_d10", zc, zc, one, nz))
+    xb = torch.cat([unit(2000, 10), torch.zeros(48, 10, dtype=torch.float64, device=dev)])
+    z1, z2 = centered(xb / ell, unit(5000, 10) / ell)
     out.append(("bench_cross_2048x5000_d10", z1, z2, one, nz))
-    z1, z2 = centered(xb / ell, unit(BENCH_CHUNK, 10) / ell)
-    out.append(("bench_chunk_2048x1000_d10", z1, z2, one, nz))
     for n, m in ((1, 1), (130, 257), (999, 1000)):
         z1, z2 = centered(unit(n, 10) / ell, unit(m, 10) / ell)
         out.append((f"ragged_{n}x{m}_d10", z1, z2, one, nz))
-    ell60 = math.sqrt(60 / 24)
-    z1, z2 = centered(unit(1024, 60) / ell60, unit(1000, 60) / ell60)
-    out.append(("d60_1024x1000", z1, z2, one, nz))
+    z1, z2 = centered(unit(2000, 60) / ell60, unit(1000, 60) / ell60)
+    out.append(("ts_cross_2000x1000_d60", z1, z2, one, nz))
     # a trust region of side 0.5**7 around one point, at a small fitted ℓ
     c0 = unit(1, 10)
     x1 = c0 + 0.5**7 * (unit(1000, 10) - 0.5)
@@ -132,19 +152,33 @@ def _cases(torch, gen):
     return out
 
 
+def _exact_diagonal(torch, got, s, noise, add_noise, label):
+    """The f32 diagonal of K(Z, Z) is outputscale (+ noise) exactly: d² = 0
+    there, and k(0) rounds to 1 in every kernel function."""
+    batch = got.shape[0] if got.dim() == 3 else 1
+    want = s.reshape(-1, 1).expand(batch, 1)
+    if add_noise:
+        want = want + noise.reshape(-1, 1).expand(batch, 1)
+    diag = got.diagonal(dim1=-2, dim2=-1).reshape(batch, -1)
+    _require(bool((diag == want).all()), f"{label}: the diagonal is not outputscale + noise exactly")
+
+
 def phase2_parity(torch, CK):
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     n_checked = 0
     for label, z1, z2, os_, noise in _cases(torch, gen):
         same = z2 is z1
+        versus_f64 = {"kernel": 0.0, "plain": 0.0}
         for dtype in (torch.float32, torch.float64):
             a = z1.to(dtype).contiguous()
             b = a if same else z2.to(dtype).contiguous()
             s, nz = os_.to(dtype), noise.to(dtype)
             for name in CK.KERNEL_IDS:
                 for add_noise in (False, True):
+                    what = f"{label} {dtype} {name} noise={add_noise}"
                     got = CK.kernel_matrix(a, b, s, nz, name, add_noise)
+                    again = CK.kernel_matrix(a, b, s, nz, name, add_noise)
                     torch.cuda.synchronize()
                     ref = CK.kernel_matrix_reference(a, b, s, nz, name, add_noise)
                     err = (got - ref).abs()
@@ -152,16 +186,30 @@ def phase2_parity(torch, CK):
                         bad = err > F32_ATOL + F32_RTOL * ref.abs()
                     else:
                         bad = err > F64_RTOL * ref.abs()
-                    _require(bool(torch.isfinite(got).all()), f"{label} {dtype} {name}: non-finite output")
-                    _require(not bool(bad.any()), (
-                        f"{label} {dtype} {name} noise={add_noise}: {int(bad.sum())} entries out of "
-                        f"tolerance, max abs err {float(err.max()):.3e}"))
+                    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+                    _require(not bool(bad.any()), f"{what}: {int(bad.sum())} entries out of tolerance, "
+                                                  f"max abs err {float(err.max()):.3e}")
+                    _require(torch.equal(got, again), f"{what}: two calls differ")
+                    if same:
+                        _require(torch.equal(got, got.mT), f"{what}: K(Z, Z) is not bitwise symmetric")
+                        if dtype == torch.float32:
+                            _exact_diagonal(torch, got, s, nz, add_noise, what)
                     worst[dtype] = max(worst[dtype], float(err.max()))
                     n_checked += 1
-        _emit({"phase": 2, "case": label, "shape": [list(z1.shape), list(z2.shape)], "ok": True})
-    _emit({"phase": 2, "kernel": "kernel_matrix", "comparisons": n_checked, "max_abs_err_f32": worst[torch.float32],
-           "max_abs_err_f64": worst[torch.float64], "tolerance_f32": [F32_RTOL, F32_ATOL],
-           "tolerance_f64_rtol": F64_RTOL})
+                    if dtype == torch.float32:
+                        a64 = a.double()
+                        exact = CK.kernel_matrix_reference(a64, a64 if same else b.double(), s.double(), nz.double(),
+                                                           name, add_noise)
+                        versus_f64["kernel"] = max(versus_f64["kernel"], float((got.double() - exact).abs().max()))
+                        versus_f64["plain"] = max(versus_f64["plain"], float((ref.double() - exact).abs().max()))
+                        del exact
+        _require(versus_f64["kernel"] <= versus_f64["plain"], f"kernel_matrix {label}: f32 error against the f64 "
+                 f"plain version {versus_f64['kernel']:.3e} above the plain f32 version's {versus_f64['plain']:.3e}")
+        _emit({"phase": 2, "kernel": "kernel_matrix", "case": label, "shape": [list(z1.shape), list(z2.shape)],
+               "ok": True, "f32_err_vs_f64_plain": versus_f64})
+    _emit({"phase": 2, "kernel": "kernel_matrix", "comparisons": n_checked,
+           "max_abs_err_f32": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
+           "tolerance_f32": [F32_RTOL, F32_ATOL], "tolerance_f64_rtol": F64_RTOL})
     ts_worst = _ts_cov_parity(torch, CK)
     grad_err = _kernel_matrix_grad_parity(torch, CK)
     e2e = _small_gp_agreement(torch)
@@ -198,13 +246,20 @@ def _ts_cases(torch, gen):
         v = torch.stack([p[1] for p in parts])
         return label, zs.contiguous(), v.contiguous(), torch.tensor(scales, dtype=f64, device=dev)
 
-    ell60 = math.sqrt(60 / 24)
+    ell10, ell60 = math.sqrt(10 / 24), math.sqrt(60 / 24)
     scales5 = [1.3, 0.7, 2.0, 1.0, 0.3]
     return [
+        batch("path_1000_n2000_d60", [chunk(1000, 2000, 60, ell60)], [1.3]),
+        batch("path_1000_n512_d60", [chunk(1000, 512, 60, ell60)], [0.7]),
+        batch("path_1000_n1000_d10", [chunk(1000, 1000, 10, ell10)], [1.3]),
+        batch("bench_1000_n2048_d10", [chunk(1000, 2048, 10, ell10)], [1.3]),
         batch("tr5_chunk_5x1000_n2048_d60", [chunk(1000, 2048, 60, ell60) for _ in range(5)], scales5),
         batch("tr5_chunk_5x1000_n512_d60", [chunk(1000, 512, 60, ell60) for _ in range(5)], scales5),
-        batch("ragged_999_n1750_d60", [chunk(999, 1750, 60, ell60)], [1.3]),
-        batch("d10_1000_n1000", [chunk(1000, 1000, 10, math.sqrt(10 / 24))], [1.3]),
+        batch("m1_n600_d60", [chunk(1, 600, 60, ell60)], [1.3]),
+        batch("m63_n300_d60", [chunk(63, 300, 60, ell60)], [1.3]),
+        batch("m65_n700_d60", [chunk(65, 700, 60, ell60)], [1.3]),
+        batch("m999_n1750_d60", [chunk(999, 1750, 60, ell60)], [1.3]),
+        batch("m1000_n1_d10", [chunk(1000, 1, 10, ell10)], [1.3]),
         batch("clustered_1000_n1000_d60", [chunk(1000, 1000, 60, 0.01, cluster=0.5**7)], [1.3]),
     ]
 
@@ -219,18 +274,22 @@ def _ts_cov_parity(torch, CK):
     for label, zs64, v64, s64 in _ts_cases(torch, gen):
         scale = s64[:, None, None]
         versus_f64 = {"kernel": 0.0, "plain": 0.0}
+        plan = CK.ts_cov_plan(*zs64.shape[:2], v64.shape[1], zs64.shape[2])
         for dtype in (torch.float32, torch.float64):
             zs, v, s = zs64.to(dtype), v64.to(dtype), s64.to(dtype)
             tol = TS_F32_ATOL if dtype == torch.float32 else TS_F64_ATOL
             for name in CK.KERNEL_IDS:
                 for jitter in (0.0, 1e-6):
+                    what = f"ts_cov {label} {dtype} {name} jitter={jitter}"
                     got = CK.ts_cov(zs, v, s, jitter, name)
+                    again = CK.ts_cov(zs, v, s, jitter, name)
                     torch.cuda.synchronize()
                     ref = CK.ts_cov_reference(zs, v, s, jitter, name)
                     err = float(((got - ref).abs() / scale).max())
-                    _require(bool(torch.isfinite(got).all()), f"ts_cov {label} {dtype} {name}: non-finite output")
-                    _require(err <= tol, f"ts_cov {label} {dtype} {name} jitter={jitter}: max err "
-                                         f"{err:.3e}·outputscale > {tol:.0e}")
+                    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+                    _require(err <= tol, f"{what}: max err {err:.3e}·outputscale > {tol:.0e}")
+                    _require(torch.equal(got, again), f"{what}: two calls differ")
+                    _require(torch.equal(got, got.mT), f"{what}: not bitwise symmetric")
                     worst[dtype] = max(worst[dtype], err)
                     n_checked += 1
                     if dtype == torch.float32:
@@ -238,8 +297,15 @@ def _ts_cov_parity(torch, CK):
                         exact = CK.ts_cov_reference(zs.double(), v.double(), s.double(), jitter, name)
                         versus_f64["kernel"] = max(versus_f64["kernel"], float(((got.double() - exact).abs() / scale).max()))
                         versus_f64["plain"] = max(versus_f64["plain"], float(((ref.double() - exact).abs() / scale).max()))
+            if dtype == torch.float32:  # the kernel term alone: its diagonal is outputscale exactly
+                for name in CK.KERNEL_IDS:
+                    got = CK.ts_cov(zs, torch.zeros_like(v), s, 0.0, name)
+                    _exact_diagonal(torch, got, s, None, False, f"ts_cov {label} {name} kernel term")
+        _require(versus_f64["kernel"] <= versus_f64["plain"], f"ts_cov {label}: f32 error against the f64 plain "
+                 f"version {versus_f64['kernel']:.3e} above the plain f32 version's {versus_f64['plain']:.3e}")
         _emit({"phase": 2, "kernel": "ts_cov", "case": label, "zs": list(zs64.shape), "v": list(v64.shape),
-               "ok": True, "f32_err_vs_f64_plain_per_outputscale": versus_f64})
+               "splits": plan.splits, "chunk": plan.chunk, "ok": True,
+               "f32_err_vs_f64_plain_per_outputscale": versus_f64})
     _emit({"phase": 2, "kernel": "ts_cov", "comparisons": n_checked,
            "max_err_f32_per_outputscale": worst[torch.float32], "max_err_f64_per_outputscale": worst[torch.float64],
            "max_abs_err_f32": worst_abs, "tolerance_f32": TS_F32_ATOL, "tolerance_f64": TS_F64_ATOL})
@@ -299,203 +365,57 @@ def _small_gp_agreement(torch):
     return diffs
 
 
-def _event_ms(torch, fn, reps: int) -> float:
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def phase3_timings(smi):
+    from turbojax_torch import kernel_bench as KB
+
+    lines = KB.measure_kernels(smi, emit=lambda line: _emit({"phase": 3, **line}))
+    _emit({"phase": 3, "bench_iteration_ms": KB.bench_iteration(_require), "card": smi})
+    return lines[KB.KM_HEADLINE], lines[KB.TS_HEADLINE]
 
 
-def _paired(torch, plain, kernel, reps: int, warmup: int = 3):
-    """Plain, kernel, kernel, plain; returns (kernel ms, plain ms), each the
-    mean of its two windows."""
-    for _ in range(warmup):
-        plain()
-        kernel()
-    torch.cuda.synchronize()
-    p1 = _event_ms(torch, plain, reps)
-    k1 = _event_ms(torch, kernel, reps)
-    k2 = _event_ms(torch, kernel, reps)
-    p2 = _event_ms(torch, plain, reps)
-    return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+def _drive(torch, CK, name):
+    """Run one configuration (seed 0) with both launch counters set to 0 just
+    before and read just after; returns (result, benchmark, wall seconds,
+    {kernel: launches})."""
+    from turbojax_torch.profile_config5 import run_config
 
-
-def phase3_timings(torch, CK, smi):
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    f32 = torch.float32
-
-    def unit(*shape):
-        return torch.rand(shape, generator=gen, device="cuda", dtype=f32)
-
-    shapes = {
-        "grid_15x1000x1000_d10_noise": (unit(15, 1000, 10), None, torch.ones(15, device="cuda"), True),
-        "kxx_1000x1000_d10_noise": (unit(1000, 10), None, torch.tensor(1.0, device="cuda"), True),
-        "cross_1000x1000_d10": (unit(1000, 10), unit(1000, 10), torch.tensor(1.0, device="cuda"), False),
-        "bench_kxx_2048x2048_d10_noise": (unit(2048, 10), None, torch.tensor(1.0, device="cuda"), True),
-        "bench_cross_2048x5000_d10": (unit(2048, 10), unit(5000, 10), torch.tensor(1.0, device="cuda"), False),
-        "bench_chunk_2048x1000_d10": (unit(2048, 10), unit(1000, 10), torch.tensor(1.0, device="cuda"), False),
-    }
-    kernel_times = {}
-    for label, (z1, z2, os_, add_noise) in shapes.items():
-        z2 = z1 if z2 is None else z2
-        noise = torch.full_like(os_, 1e-3)
-        k_ms, p_ms = _paired(
-            torch,
-            lambda: CK.kernel_matrix_reference(z1, z2, os_, noise, "matern52", add_noise),
-            lambda: CK.kernel_matrix(z1, z2, os_, noise, "matern52", add_noise),
-            reps=20,
-        )
-        kernel_times[label] = (k_ms, p_ms)
-        _emit({"phase": 3, "shape": label, "kernel_ms": k_ms, "plain_ms": p_ms, "card": smi})
-
-    ts_times = _ts_cov_timings(torch, CK, smi)
-    it_ms = _bench_iteration(torch)
-    _emit({"phase": 3, "bench_iteration_ms": it_ms, "card": smi})
-    return kernel_times, ts_times
-
-
-def _ts_cov_timings(torch, CK, smi):
-    """ts_cov against its plain version (kernel-matrix kernel + v.mT @ v +
-    jitter·I in cuBLAS fp32) at config 5's shapes: one region's five chunks
-    at the full capacity (n = 2048), the four small regions' twenty chunks
-    at the 512 rung, and the single chunk the path calls (n = 2000)."""
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    shapes = {
-        "tr_chunks_5x1000_n2048_d60": (5, 1000, 2048, 60),
-        "cap512_group_20x1000_n512_d60": (20, 1000, 512, 60),
-        "path_chunk_1x1000_n2000_d60": (1, 1000, 2000, 60),
-    }
-    times = {}
-    for label, (b, m, n, d) in shapes.items():
-        zs = torch.rand((b, m, d), generator=gen, device="cuda") / math.sqrt(d / 24)
-        zs = (zs - zs.mean(dim=-2, keepdim=True)).contiguous()
-        v = torch.randn((b, n, m), generator=gen, device="cuda") / math.sqrt(n)
-        s = torch.ones(b, device="cuda")
-        k_ms, p_ms = _paired(
-            torch,
-            lambda: CK.ts_cov_reference(zs, v, s, 1e-6, "matern52"),
-            lambda: CK.ts_cov(zs, v, s, 1e-6, "matern52"),
-            reps=10,
-        )
-        gflop = 2.0 * b * m * m * (n + d) / 1e9
-        times[label] = (k_ms, p_ms)
-        _emit({"phase": 3, "kernel": "ts_cov", "shape": label, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "kernel_tflops": gflop / k_ms, "plain_tflops": gflop / p_ms, "card": smi})
-    return times
-
-
-def _bench_iteration(torch):
-    """bench.py's iteration at N = 2000 in a 2048 buffer: make_gp_state,
-    gp_posterior over 5000 candidates, EI, thompson_select q = 10 in chunks
-    of 1000, with the kernel (use_kernel=None) and with the plain version
-    (use_kernel=False); host clock around a synchronized iteration."""
-    import dataclasses
-
-    from turbojax_torch import acq as A
-    from turbojax_torch import gp as G
-    from turbojax_torch import linalg as L
-    from turbojax_torch.config import GPConfig
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dev, f32 = "cuda", torch.float32
-    x = torch.rand((BENCH_N, BENCH_D), generator=gen, device=dev, dtype=f32)
-    y = torch.sin(3 * x[:, 0]) + 0.1 * torch.randn(BENCH_N, generator=gen, device=dev, dtype=f32)
-    cands = torch.rand((BENCH_CAND, BENCH_D), generator=gen, device=dev, dtype=f32)
-    x_buf = torch.zeros((BENCH_N_MAX, BENCH_D), device=dev, dtype=f32)
-    x_buf[:BENCH_N] = x
-    y_buf = torch.zeros((BENCH_N_MAX,), device=dev, dtype=f32)
-    y_buf[:BENCH_N] = y
-    mask = L.row_mask(BENCH_N_MAX, BENCH_N, dev)
-    base = GPConfig(kernel="matern52")
-    raw = G.default_params(BENCH_D, base, f32, dev)
-    configs = {"kernel": base, "plain": dataclasses.replace(base, use_kernel=False)}
-
-    def iteration(config):
-        state = G.make_gp_state(x_buf, y_buf, mask, raw, config)
-        mu, var = G.gp_posterior(state, cands, config)
-        best = torch.where(mask, y_buf, torch.inf).min()
-        ei = A.expected_improvement(mu, var, best)
-        xs, vals = A.thompson_select(state, cands, BENCH_Q, config, BENCH_CHUNK, gen)
-        _require(bool(torch.isfinite(ei).all() & torch.isfinite(xs).all()), "bench iteration: non-finite output")
-
-    def timed(label, reps=5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            iteration(configs[label])
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / reps
-
-    for label in ("plain", "kernel", "plain", "kernel"):
-        iteration(configs[label])  # warm up both
-    p1, k1, k2, p2 = timed("plain"), timed("kernel"), timed("kernel"), timed("plain")
-    return {"kernel": 0.5 * (k1 + k2), "plain": 0.5 * (p1 + p2)}
-
-
-def phase4_config4(torch, CK, smi):
-    from turbojax_torch import benchmarks as B
-    from turbojax_torch import optimize
-    from turbojax_torch import registry as R
-
-    cfg = R.get_config("turbo1_ackley10")
-    bench = B.get_benchmark(cfg.benchmark)
-    t = cfg.turbo
-    res, wall, launches = _drive(torch, CK, lambda: optimize(
-        bench.fn, bench.lb, bench.ub, t.max_evals, method=cfg.method, n_init=t.n_init,
-        batch_size=t.batch_size, n_candidates=t.n_candidates, gp_config=cfg.gp, seed=0,
-        device="cuda",
-    ))
-    init_best = _check_run(cfg.name, res, launches, t.n_init // t.batch_size - 1)
-    _emit({"phase": 4, "config": cfg.name, "evals": t.max_evals, "wall_s": wall, "best_y": res.best_y,
-           "regret": res.best_y - bench.optimum, "init_design_best": init_best, "launches": launches,
-           "iterations": len(res.incumbent_trace), "card": smi})
-    return launches
-
-
-def _drive(torch, CK, run):
-    """Run one path with both launch counters set to 0 just before and read
-    just after; returns (result, wall seconds, {kernel: launches})."""
     torch.cuda.synchronize()
     CK.LAUNCHES = 0
     CK.TS_COV_LAUNCHES = 0
     t0 = time.perf_counter()
-    res = run()
+    res, bench = run_config(name, 0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return res, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES}
+    return res, bench, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES}
 
 
-def _check_run(name, res, launches, init_index):
-    """Fails unless both kernels were launched, the history is finite and
-    the best value beats the initial design's; returns the latter."""
+def _check_run(name, res, launches, init_index, iterations):
+    """Fails unless both kernels were launched, the incumbent trace has one
+    finite, non-increasing entry per batch, the history is finite (it holds
+    the last region's points, as the JAX package's does: none right after a
+    restart) and the best value beats the initial design's; returns the
+    latter."""
     init_best = float(res.incumbent_trace[init_index])
     for kernel, n in launches.items():
         _require(n > 0, f"{name} ran without launching the {kernel} kernel")
-    _require(bool(len(res.y_hist) > 0 and all(map(math.isfinite, res.y_hist.tolist()))), f"{name}: non-finite history")
-    _require(math.isfinite(res.best_y), f"{name}: non-finite best_y")
+    trace = res.incumbent_trace.tolist()
+    _require(len(trace) == iterations and all(map(math.isfinite, trace)), f"{name}: incumbent trace {trace[-3:]}")
+    _require(all(b <= a for a, b in zip(trace, trace[1:])), f"{name}: the incumbent trace rises")
+    _require(all(map(math.isfinite, res.y_hist.tolist())), f"{name}: non-finite history")
+    _require(math.isfinite(res.best_y) and res.best_y == trace[-1], f"{name}: best_y {res.best_y} is not the trace's last")
     _require(res.best_y < init_best, f"{name}: best_y {res.best_y} does not improve on the initial design {init_best}")
     return init_best
 
 
-def phase5_config5(torch, CK, smi):
-    from turbojax_torch import benchmarks as B
-    from turbojax_torch import optimize
+def phase_config(torch, CK, smi, phase, name):
     from turbojax_torch import registry as R
 
-    cfg = R.get_config("turbom5_rover60")
-    bench = B.get_benchmark(cfg.benchmark)
+    cfg = R.get_config(name)
     t = cfg.turbo
-    res, wall, launches = _drive(torch, CK, lambda: optimize(
-        bench.fn, bench.lb, bench.ub, t.max_evals, method=cfg.method, m=cfg.m, n_init=t.n_init,
-        batch_size=t.batch_size, n_candidates=t.n_candidates, ts_chunk=t.ts_chunk, gp_config=cfg.gp,
-        seed=0, device="cuda",
-    ))
+    res, bench, wall, launches = _drive(torch, CK, name)
     # the m init designs fill the first m·n_init/q batches
-    init_best = _check_run(cfg.name, res, launches, cfg.m * t.n_init // t.batch_size - 1)
-    _emit({"phase": 5, "config": cfg.name, "m": cfg.m, "evals": len(res.y_hist), "wall_s": wall,
+    init_best = _check_run(name, res, launches, cfg.m * t.n_init // t.batch_size - 1, t.n_iters)
+    _emit({"phase": phase, "config": name, "m": cfg.m, "evals": len(res.y_hist), "wall_s": wall,
            "best_y": res.best_y, "regret": res.best_y - bench.optimum, "init_design_best": init_best,
            "launches": launches, "iterations": len(res.incumbent_trace), "card": smi})
     return launches
@@ -509,21 +429,22 @@ def main() -> int:
 
     phase1_build(CK)
     max_err, ts_err = phase2_parity(torch, CK)
-    kernel_times, ts_times = phase3_timings(torch, CK, smi)
-    launches4 = phase4_config4(torch, CK, smi)
-    launches5 = phase5_config5(torch, CK, smi)
-    k_ms, p_ms = kernel_times["grid_15x1000x1000_d10_noise"]
-    ts_ms, ts_plain_ms = ts_times["tr_chunks_5x1000_n2048_d60"]
-    by_path = {name: {"turbo1_ackley10": launches4[name], "turbom5_rover60": launches5[name]}
-               for name in launches5}
-    _emit({"kernels": [
-        {"name": "kernel_matrix", "route": "cuda", "source": "turbojax_torch/csrc/kernel_matrix.cu",
-         "replaces": "turbojax/pallas_kernels.py:72", "launches": launches5["kernel_matrix"],
-         "launches_by_path": by_path["kernel_matrix"], "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms},
-        {"name": "ts_cov", "route": "cuda", "source": "turbojax_torch/csrc/ts_cov.cu",
-         "replaces": "turbojax/pallas_kernels.py:194", "launches": launches5["ts_cov"],
-         "launches_by_path": by_path["ts_cov"], "max_abs_err": ts_err, "ms": ts_ms, "plain_ms": ts_plain_ms},
-    ]})
+    km_line, ts_line = phase3_timings(smi)
+    launches4 = phase_config(torch, CK, smi, 4, "turbo1_ackley10")
+    launches5 = phase_config(torch, CK, smi, 5, "turbom5_rover60")
+    entries = []
+    for name, source, replaces, err, line in (
+        ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_line),
+        ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_line),
+    ):
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches5[name],
+            "launches_by_path": {"turbo1_ackley10": launches4[name], "turbom5_rover60": launches5[name]},
+            "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+            "bound_by": line["bound_by"], "library_ms": line["library_ms"], "device_ms": line["device_ms"],
+            "shape": line["shape"],
+        })
+    _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -170,15 +170,24 @@ def test_cuda_kernel_matches_plain_version(dtype):
         pytest.skip("needs a CUDA GPU and nvcc (the kernel has no CPU mode)")
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
+    tol = dict(rtol=2e-5, atol=2e-6) if dt == torch.float32 else dict(rtol=1e-12, atol=0.0)
     CK.LAUNCHES = 0
+    # ragged cross matrices; K(Z, Z) at ragged sizes of the symmetric schedule,
+    # d past the 64 features staged at once; config 5's 64-row grid batch at
+    # the 512 rung
+    shapes = ((2, 1, 1, 10), (2, 130, 257, 10), (2, 300, 300, 10), (2, 63, 63, 60), (2, 65, 65, 60),
+              (1, 999, 999, 70), (64, 512, 512, 60))
     for name in KERNEL_NAMES:
-        for n, m in ((1, 1), (130, 257), (300, 300)):
-            z1 = torch.randn(2, n, 10, generator=g, device="cuda", dtype=dt)
-            z2 = z1 if n == m else torch.randn(2, m, 10, generator=g, device="cuda", dtype=dt)
-            s = torch.tensor([1.0, 2.0], device="cuda", dtype=dt)
-            nz = torch.tensor([0.1, 0.01], device="cuda", dtype=dt)
+        for batch, n, m, d in shapes:
+            z1 = torch.randn(batch, n, d, generator=g, device="cuda", dtype=dt) / 3
+            z2 = z1 if n == m else torch.randn(batch, m, d, generator=g, device="cuda", dtype=dt) / 3
+            s = torch.linspace(1.0, 2.0, batch, device="cuda", dtype=dt)
+            nz = torch.linspace(0.1, 0.01, batch, device="cuda", dtype=dt)
             got = CK.kernel_matrix(z1, z2, s, nz, name, True)
-            ref = CK.kernel_matrix_reference(z1, z2, s, nz, name, True)
-            tol = dict(rtol=2e-5, atol=2e-6) if dt == torch.float32 else dict(rtol=1e-12, atol=0.0)
-            torch.testing.assert_close(got, ref, **tol)
-    assert CK.LAUNCHES == 12
+            torch.testing.assert_close(got, CK.kernel_matrix_reference(z1, z2, s, nz, name, True), **tol)
+            assert torch.equal(got, CK.kernel_matrix(z1, z2, s, nz, name, True))  # run to run
+            if z2 is z1:
+                assert torch.equal(got, got.mT)
+                if dt == torch.float32:  # d² = 0 exactly, and k(0) rounds to 1
+                    assert torch.equal(got.diagonal(dim1=-2, dim2=-1), (s + nz)[:, None].expand(batch, n))
+    assert CK.LAUNCHES == 2 * len(KERNEL_NAMES) * len(shapes)

@@ -167,14 +167,23 @@ def test_cuda_kernel_matches_plain_version(dtype, rng):
     if not CK.available():
         pytest.skip("needs a CUDA GPU and nvcc (the kernel has no CPU mode)")
     dt = getattr(torch, dtype)
+    atol = TS_ATOL * 1.3 if dt == torch.float32 else 1e-12 * 1.3
     CK.TS_COV_LAUNCHES = 0
+    # m = 1, 63, 65 and the ragged 200 around the 64-tiles; n = 1; with
+    # M = 256 (10 upper tiles) n is split: 384 in three, 300 in two with a
+    # shorter last split
+    sizes = ((M, N), (200, 131), (1, 1), (63, 300), (65, 1), (M, 300))
     for name in KERNEL_NAMES:
         zs, v = _problem(rng, 60, name)
-        for m, n in ((M, N), (200, 131), (1, 1)):
+        for m, n in sizes:
             z = zs[:m].to(dt).cuda()
             vv = v[:n, :m].to(dt).cuda()
             got = CK.ts_cov(z, vv, 1.3, 1e-6, name)
             ref = CK.ts_cov_reference(z, vv, 1.3, 1e-6, name)
-            atol = TS_ATOL * 1.3 if dt == torch.float32 else 1e-12 * 1.3
             torch.testing.assert_close(got, ref, rtol=0, atol=atol)
-    assert CK.TS_COV_LAUNCHES == 12
+            assert torch.equal(got, got.mT) and torch.equal(got, CK.ts_cov(z, vv, 1.3, 1e-6, name))
+            if dt == torch.float32:  # the kernel term's diagonal is outputscale exactly
+                k = CK.ts_cov(z, torch.zeros_like(vv), 1.3, 0.0, name)
+                assert torch.all(k.diagonal() == torch.tensor(1.3, dtype=dt))
+    per_case = 3 if dt == torch.float32 else 2
+    assert CK.TS_COV_LAUNCHES == per_case * len(KERNEL_NAMES) * len(sizes)

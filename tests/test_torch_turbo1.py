@@ -148,7 +148,7 @@ def test_optimize_turbo1_cpu_improves_on_initial_design():
     bench = TB.get_benchmark("ackley10")
     cfg = TRG.get_config("turbo1_ackley10")
     res = optimize(bench.fn, bench.lb, bench.ub, 60, method="turbo1", n_init=20, batch_size=10,
-                   n_candidates=64, gp_config=cfg.gp, seed=0)
+                   n_candidates=64, gp_config=cfg.gp, seed=0, device="cpu")
     assert np.all(np.isfinite(res.y_hist)) and np.isfinite(res.best_y)
     assert res.incumbent_trace.shape == (4,)
     assert res.best_y < res.incumbent_trace[1]  # the best of the 20-point initial design

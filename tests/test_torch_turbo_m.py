@@ -272,7 +272,7 @@ def test_optimize_turbom_cpu_improves_on_initial_design():
     bench = TB.get_benchmark("rover60")
     cfg = TRG.get_config("turbom5_rover60")
     res = optimize(bench.fn, bench.lb, bench.ub, 60, method="turbom", m=2, n_init=10, batch_size=10,
-                   n_candidates=64, gp_config=cfg.gp, seed=0)
+                   n_candidates=64, gp_config=cfg.gp, seed=0, device="cpu")
     assert np.all(np.isfinite(res.y_hist)) and np.isfinite(res.best_y)
     assert res.incumbent_trace.shape == (5,) and res.x_hist.shape == (50, 60)
     assert np.all(np.diff(res.incumbent_trace) <= 0)

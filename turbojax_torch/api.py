@@ -62,7 +62,9 @@ def optimize(
     (``method="turbom"``).
 
     Runs on ``generator.device`` when a generator is given, otherwise on
-    ``device`` (default CPU) with a generator seeded from ``seed``.
+    ``device`` with a generator seeded from ``seed``. The default device is
+    the GPU (``"cuda"``): without one this raises, and the CPU runs only
+    when asked for with ``device="cpu"``.
     ``ts_chunk`` is the Thompson-sampling chunk of the candidate axis
     (``TurboConfig.ts_chunk``; None samples all candidates jointly, as the
     JAX package's ``optimize`` does). ``acq`` and ``host_loop`` do not
@@ -75,7 +77,13 @@ def optimize(
     if mesh is not None or budget_bytes is not None:
         raise NotImplementedError("mesh= and budget_bytes= are not ported yet")
     if generator is None:
-        generator = torch.Generator(device=torch.device(device or "cpu")).manual_seed(seed)
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "optimize runs on the GPU unless told otherwise, and torch.cuda.is_available() is False; "
+                'pass device="cpu" to run on the CPU'
+            )
+        generator = torch.Generator(device=device).manual_seed(seed)
     elif device is not None and torch.device(device) != generator.device:
         raise ValueError(f"device {device} differs from the generator's {generator.device}")
 

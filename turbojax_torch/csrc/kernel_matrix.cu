@@ -7,136 +7,131 @@
 //
 // with z1 (B, n, d), z2 (B, m, d) already divided by the lengthscales and
 // centered by the caller, k one of rbf / matern12 / matern32 / matern52, and
-// scal (B, 2) = [outputscale, noise] read on the device (no host sync).
+// s_b = scale[b * scale_stride], noise_b = noise[b * noise_stride] read on
+// the device (stride 0: one value for the whole batch; no host sync).
 //
-// The math is the Pallas kernel's: cross = z1 . z2^T in full precision FMAs
-// (no TF32, no tensor cores), d2 = max(|z1|^2 + |z2|^2 - 2 cross, 0), then the
-// kernel function with r = sqrt(d2 + 1e-30). The squared norms are
-// accumulated in the same FMA order as the cross term, so two bitwise equal
-// rows give d2 == 0 exactly (the diagonal of K(X, X) is exact).
+// The function is the Pallas kernel's, the kernel function of the squared
+// distance with r = sqrt(d2 + 1e-30); d2 is summed directly as
+// sum_k (z1_k - z2_k)^2 in full-precision FMAs (no TF32, no tensor cores),
+// in blocks of 16 features, not through the expansion |z1|^2 + |z2|^2 -
+// 2 z1.z2, and the kernel function is evaluated in double and rounded once
+// (tile::kernel_tile): no cancellation and one rounding, so the f32 result
+// is nearer the f64 one than the plain version's, and the diagonal of
+// K(X, X) is exact (Matern-1/2 would turn an eps * |z|^2 there into 1e-3).
 //
-// What bounds it on an H100: at d = 10 the FLOPs are negligible; the bound is
-// the n*m*sizeof(T) output write plus one exp and one sqrt per entry (the
-// 15 x 1000 x 1000 float grid batch writes 60 MB, about 18 us at 3.35 TB/s).
-// The design answers that simply: each 256-thread block owns one 32 x 32
-// output tile, stages its z1 and z2 rows in shared memory in chunks of 16
-// features, keeps the four accumulators of each thread in registers, applies
-// the kernel function as an epilogue in registers, and writes every output
-// once, a warp storing 32 consecutive columns of one row (coalesced).
-// Ragged edges are masked, so n, m and d are arbitrary. blockIdx.z is the
-// batch index. wgmma, TMA and a persistent schedule are later work.
+// What bounds it on an H100: the n * m * sizeof(T) output write at d = 10
+// (15 x 1000 x 1000 floats, 60 MB, 18 us at 3.35 TB/s), and at d = 60 the
+// write (16 x 2000 x 2000 floats: 256 MB, 76 us) ahead of the 3 d fp32
+// operations per distinct entry (5.8 GFLOP, 86 us at 67 TFLOP/s, which the
+// direct differences cost: a subtraction besides each FMA). The design:
+// - the register-tiled mainloop of tile_mainloop.cuh, the whole feature axis
+//   staged at once for d <= 64;
+// - K(Z, Z) (symmetric, z2 is z1) computes the upper tiles only and writes
+//   each off-diagonal tile twice, so it does half the FMAs and kernel
+//   functions for the same bytes written;
+// - 64 x 64 tiles, 4 x 4 outputs per thread (the blocked sum holds a second
+//   accumulator), four blocks per SM in float for the write-bound shapes;
+// - 16-byte stores along output rows wherever m % 4 == 0;
+// - one launch per call: the per-batch scalars are read through pointers
+//   and strides, so the wrapper builds no scalar table.
+// Ragged n, m and d are masked; blockIdx.z is the batch index.
 //
 // Entry point: kernel_matrix_launch (plain C, loaded with ctypes). It
 // launches on the given stream, does not synchronise, allocates nothing and
 // returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <climits>
 
-#include "kernel_fn.cuh"
+#include "tile_mainloop.cuh"
 
 namespace {
 
-constexpr int TILE = 32;             // output tile is TILE x TILE
-constexpr int ROWS_PER_THREAD = 4;   // each thread owns 4 rows of one column
-constexpr int THREADS = TILE * TILE / ROWS_PER_THREAD;  // 256
-constexpr int ROW_STEP = THREADS / TILE;                 // 8
-constexpr int KC = 16;               // features staged per shared-memory step
+using S = tile::KTile;
 
 template <typename T, int KID, bool NOISE>
-__global__ void __launch_bounds__(THREADS)
-kernel_matrix_tile(const T* __restrict__ z1, const T* __restrict__ z2,
-                   const T* __restrict__ scal, T* __restrict__ out,
-                   int n, int m, int d) {
-  // +1 column of padding keeps the per-column reads of b_s conflict-free.
-  __shared__ T a_s[TILE][KC + 1];
-  __shared__ T b_s[TILE][KC + 1];
+__global__ void __launch_bounds__(S::THREADS, sizeof(T) == 4 ? 4 : 1)
+kernel_matrix_tile(const T* __restrict__ z1, const T* __restrict__ z2, const T* __restrict__ scale,
+                   int scale_stride, const T* __restrict__ noise, int noise_stride, T* __restrict__ out,
+                   int n, int m, int d, int col_tiles, int symmetric, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
+  int ti, tj;
+  if (symmetric) {
+    tile::upper_tile(blockIdx.x, ti, tj);
+  } else {
+    ti = blockIdx.x / col_tiles;
+    tj = blockIdx.x - ti * col_tiles;
+  }
+  const int row0 = ti * S::TILE;
+  const int col0 = tj * S::TILE;
   const int b = blockIdx.z;
-  const int row0 = blockIdx.y * TILE;
-  const int col0 = blockIdx.x * TILE;
-  const int tx = threadIdx.x % TILE;  // output column in the tile
-  const int ty = threadIdx.x / TILE;  // first output row in the tile (one warp)
-
-  z1 += (size_t)b * n * d;
-  z2 += (size_t)b * m * d;
   out += (size_t)b * n * m;
 
-  T cross[ROWS_PER_THREAD];
-  T sq1[ROWS_PER_THREAD];
+  T k[S::TM][S::TM];
+  tile::kernel_tile<T, KID>(k, smem, z1 + (size_t)b * n * d, z2 + (size_t)b * m * d, row0, col0, n, m, d,
+                            scale[(size_t)b * scale_stride]);
+  if (NOISE && ti == tj) {
+    const T nz = noise[(size_t)b * noise_stride];
+    const int ty = threadIdx.x / S::SIDE;
+    const int tx = threadIdx.x % S::SIDE;
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-    cross[i] = T(0);
-    sq1[i] = T(0);
-  }
-  T sq2 = T(0);
-
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    for (int e = threadIdx.x; e < TILE * KC; e += THREADS) {
-      const int r = e / KC;
-      const int k = k0 + e % KC;
-      // zero padding past n, m or d adds fma(0, 0, acc) == acc exactly
-      a_s[r][e % KC] = (row0 + r < n && k < d) ? z1[(size_t)(row0 + r) * d + k] : T(0);
-      b_s[r][e % KC] = (col0 + r < m && k < d) ? z2[(size_t)(col0 + r) * d + k] : T(0);
-    }
-    __syncthreads();
+    for (int i = 0; i < S::TM; ++i) {
 #pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const T bv = b_s[tx][c];
-      sq2 = dev_fma(bv, bv, sq2);
-#pragma unroll
-      for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-        const T av = a_s[ty + ROW_STEP * i][c];  // broadcast within the warp
-        cross[i] = dev_fma(av, bv, cross[i]);
-        sq1[i] = dev_fma(av, av, sq1[i]);
+      for (int j = 0; j < S::TM; ++j) {
+        if (S::index(ty, i) == S::index(tx, j)) k[i][j] = dev_add(k[i][j], nz);
       }
     }
-    __syncthreads();
   }
-
-  const T outputscale = scal[2 * b];
-  const T noise = scal[2 * b + 1];
-  const int col = col0 + tx;
-  if (col >= m) return;
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-    const int row = row0 + ty + ROW_STEP * i;
-    if (row < n) {
-      T d2 = (sq1[i] + sq2) - T(2) * cross[i];
-      d2 = d2 < T(0) ? T(0) : d2;  // clamp the cancellation; NaN propagates
-      T k = kernel_fn<T, KID>(d2, outputscale);
-      if (NOISE && row == col) k += noise;
-      out[(size_t)row * m + col] = k;
-    }
-  }
+  tile::store_tile<T, S>(out, m, n, m, row0, col0, k, symmetric && ti != tj, vec != 0, smem);
 }
 
 template <typename T, int KID>
-cudaError_t launch_kid(const T* z1, const T* z2, const T* scal, T* out, int batch,
-                       int n, int m, int d, bool add_noise, cudaStream_t stream) {
-  const dim3 grid((m + TILE - 1) / TILE, (n + TILE - 1) / TILE, batch);
-  if (add_noise) {
-    kernel_matrix_tile<T, KID, true><<<grid, THREADS, 0, stream>>>(z1, z2, scal, out, n, m, d);
-  } else {
-    kernel_matrix_tile<T, KID, false><<<grid, THREADS, 0, stream>>>(z1, z2, scal, out, n, m, d);
-  }
+cudaError_t launch_kid(const T* z1, const T* z2, const T* scale, int scale_stride, const T* noise,
+                       int noise_stride, T* out, int batch, int n, int m, int d, bool symmetric, bool add_noise,
+                       bool vec, cudaStream_t stream) {
+  const int kmax = d < tile::DK ? d : tile::DK;
+  const size_t smem = (size_t)(2 * kmax * S::LDZ > S::TILE * S::LDT ? 2 * kmax * S::LDZ : S::TILE * S::LDT) *
+                      sizeof(T);
+  const long long row_tiles = (n + S::TILE - 1) / S::TILE;
+  const long long col_tiles = (m + S::TILE - 1) / S::TILE;
+  const long long blocks = symmetric ? row_tiles * (row_tiles + 1) / 2 : row_tiles * col_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto* kernel = add_noise ? &kernel_matrix_tile<T, KID, true> : &kernel_matrix_tile<T, KID, false>;
+  cudaError_t err = add_noise ? tile::allow_smem<&kernel_matrix_tile<T, KID, true>>(smem)
+                              : tile::allow_smem<&kernel_matrix_tile<T, KID, false>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)blocks, 1, (unsigned)batch);
+  kernel<<<grid, S::THREADS, smem, stream>>>(z1, z2, scale, scale_stride, noise, noise_stride, out, n, m, d,
+                                             (int)col_tiles, symmetric ? 1 : 0, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_typed(const void* z1, const void* z2, const void* scal, void* out,
-                         int batch, int n, int m, int d, int kernel_id, bool add_noise,
-                         cudaStream_t stream) {
+cudaError_t launch_typed(const void* z1, const void* z2, const void* scale, int scale_stride,
+                         const void* noise, int noise_stride, void* out, int batch, int n, int m, int d,
+                         int kernel_id, bool symmetric, bool add_noise, cudaStream_t stream) {
   const T* a = static_cast<const T*>(z1);
   const T* b = static_cast<const T*>(z2);
-  const T* s = static_cast<const T*>(scal);
+  const T* s = static_cast<const T*>(scale);
+  const T* nz = static_cast<const T*>(noise);
   T* o = static_cast<T*>(out);
+  const bool vec = sizeof(T) == 4 && m % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   switch (kernel_id) {
-    case RBF: return launch_kid<T, RBF>(a, b, s, o, batch, n, m, d, add_noise, stream);
-    case MATERN12: return launch_kid<T, MATERN12>(a, b, s, o, batch, n, m, d, add_noise, stream);
-    case MATERN32: return launch_kid<T, MATERN32>(a, b, s, o, batch, n, m, d, add_noise, stream);
-    case MATERN52: return launch_kid<T, MATERN52>(a, b, s, o, batch, n, m, d, add_noise, stream);
-    default: return cudaErrorInvalidValue;
+    case RBF:
+      return launch_kid<T, RBF>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
+                                add_noise, vec, stream);
+    case MATERN12:
+      return launch_kid<T, MATERN12>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
+                                     add_noise, vec, stream);
+    case MATERN32:
+      return launch_kid<T, MATERN32>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
+                                     add_noise, vec, stream);
+    case MATERN52:
+      return launch_kid<T, MATERN52>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
+                                     add_noise, vec, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -145,15 +140,20 @@ cudaError_t launch_typed(const void* z1, const void* z2, const void* scal, void*
 extern "C" {
 
 // Returns 0 on success, otherwise the cudaError_t of the refused launch.
+// symmetric needs z2 == z1 (so n == m) and launches the upper tiles only.
 // is_double selects the float (0) or double (1) instantiation.
-int kernel_matrix_launch(const void* z1, const void* z2, const void* scal, void* out,
-                         int batch, int n, int m, int d, int kernel_id, int add_noise,
-                         int is_double, void* stream) {
-  if (batch <= 0 || n <= 0 || m <= 0 || d < 0) return (int)cudaErrorInvalidValue;
+int kernel_matrix_launch(const void* z1, const void* z2, const void* scale, int scale_stride,
+                         const void* noise, int noise_stride, void* out, int batch, int n, int m, int d,
+                         int symmetric, int kernel_id, int add_noise, int is_double, void* stream) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || m <= 0 || d < 0 || scale_stride < 0 || noise_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  if (symmetric && (n != m || z1 != z2)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_double
-      ? launch_typed<double>(z1, z2, scal, out, batch, n, m, d, kernel_id, add_noise != 0, s)
-      : launch_typed<float>(z1, z2, scal, out, batch, n, m, d, kernel_id, add_noise != 0, s);
+  cudaError_t err =
+      is_double ? launch_typed<double>(z1, z2, scale, scale_stride, noise, noise_stride, out, batch, n, m, d,
+                                       kernel_id, symmetric != 0, add_noise != 0, s)
+                : launch_typed<float>(z1, z2, scale, scale_stride, noise, noise_stride, out, batch, n, m, d,
+                                      kernel_id, symmetric != 0, add_noise != 0, s);
   return (int)err;
 }
 

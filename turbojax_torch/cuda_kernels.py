@@ -3,7 +3,8 @@
 
 Two kernels, each in its own source under ``csrc/`` and its own shared
 library, built for sm_90a with ``nvcc`` on first use (all sources at once,
-one ``nvcc`` each, started together) and bound with ``ctypes``:
+one ``nvcc`` each, started together) and bound with ``ctypes``. Both share
+the register-tiled fp32 mainloop of ``csrc/tile_mainloop.cuh``:
 
 * ``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise)``,
   ``csrc/kernel_matrix.cu``: every kernel-matrix build of the GP goes
@@ -13,6 +14,12 @@ one ``nvcc`` each, started together) and bound with ``ctypes``:
   the Thompson-chunk covariance k(zs, zs) − vᵀv + jitter·I of
   ``turbojax.pallas_kernels.fused_ts_cov``; its plain version is
   ``ts_cov_reference``.
+
+``kernel_matrix_plan`` and ``ts_cov_plan`` decide what each launch covers
+(the tile size, the symmetric schedule, the split of ts_cov's n axis and
+its workspace) from the shapes; each wrapper makes one call into its
+library per call, with the per-batch scalars passed as pointers and batch
+strides.
 
 On CUDA tensors a wrapper launches its kernel or raises; on CPU tensors it
 computes the plain version. There is no fallback from one to the other.
@@ -28,13 +35,15 @@ a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,12 +67,18 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (row tiles) and gridDim.z (batch)
-_TILE = 32  # output tile of csrc/kernel_matrix.cu
-_TS_TILE = 64  # output tile of csrc/ts_cov.cu
+_MAX_GRID_X = 2**31 - 1  # CUDA's limit on gridDim.x: the tiles of one matrix
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (ts_cov's splits) and gridDim.z (batch)
+_TILE = 64  # output tile of csrc/kernel_matrix.cu
+_TS_TILE = 128  # tile of csrc/ts_cov.cu's first pass
+_TS_RESIDENT = 2  # first-pass blocks an SM holds at once
+_TS_LEAD = 160  # rows' worth of work in the kernel term's epilogue, besides its 2d
+_TS_MIN_CHUNK, _TS_MAX_CHUNK = 64, 384  # rows of one split: no shorter when filling the card, never longer
+_H100_SMS = 132
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
+_sm_counts: Dict[int, int] = {}
 
 
 def _find_nvcc() -> Optional[str]:
@@ -105,9 +120,12 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
     launch = getattr(lib, f"{name}_launch")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "kernel_matrix":
-        launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+        # z1, z2, scale, stride, noise, stride, out, batch, n, m, d, symmetric, kernel, add_noise, double, stream
+        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, *[i32] * 8, ptr]
     else:
-        launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        # zs, v, scale, stride, jitter, stride, out, workspace, batch, m, n, d, splits, chunk, lead, kernel, double,
+        # stream
+        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, *[i32] * 9, ptr]
     launch.restype = i32
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i32]
@@ -164,6 +182,112 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """What one launch covers, per batch entry: the ``tile`` × ``tile``
+    output tiles of a matrix of ``row_tiles`` × ``col_tiles`` tiles, only
+    the upper ones (ti ≤ tj) when ``symmetric``; and, for ts_cov, ``splits``
+    slices of the training axis, ``chunk`` rows each shifted back by
+    ``lead`` (see ``ts_cov_plan``), and a workspace of ``workspace``
+    elements."""
+
+    tile: int
+    row_tiles: int
+    col_tiles: int
+    symmetric: bool
+    splits: int = 1
+    chunk: int = 0
+    lead: int = 0
+    workspace: int = 0
+
+    @property
+    def blocks(self) -> int:
+        """Tiles launched per batch entry (gridDim.x)."""
+        r = self.row_tiles
+        return r * (r + 1) // 2 if self.symmetric else r * self.col_tiles
+
+    def tiles(self) -> List[Tuple[int, int]]:
+        """(ti, tj) of each launched tile in blockIdx.x order: the upper tiles
+        column by column (blockIdx.x = tj (tj + 1) / 2 + ti, as
+        ``tile::upper_tile`` decodes it) when symmetric, else row-major."""
+        if self.symmetric:
+            return [(ti, tj) for tj in range(self.row_tiles) for ti in range(tj + 1)]
+        return [(ti, tj) for ti in range(self.row_tiles) for tj in range(self.col_tiles)]
+
+
+def _check_grid(plan: LaunchPlan, batch: int, *sizes: int) -> None:
+    if plan.blocks > _MAX_GRID_X or batch > _MAX_GRID_YZ or plan.splits >= _MAX_GRID_YZ or max(sizes) >= 2**31:
+        raise ValueError(f"shape too large for the CUDA kernel: batch {batch}, sizes {sizes}")
+
+
+@functools.lru_cache(maxsize=1024)
+def kernel_matrix_plan(batch: int, n: int, m: int, d: int, symmetric: bool) -> LaunchPlan:
+    """The launch of ``csrc/kernel_matrix.cu`` for (B, n, d) × (B, m, d): its
+    64-tiles, only the upper ones for K(Z, Z)."""
+    if symmetric and n != m:
+        raise ValueError(f"a symmetric launch needs n == m, got {n} and {m}")
+    plan = LaunchPlan(_TILE, _cdiv(n, _TILE), _cdiv(m, _TILE), symmetric)
+    _check_grid(plan, batch, n, m, d)
+    return plan
+
+
+@functools.lru_cache(maxsize=1024)
+def ts_cov_plan(batch: int, m: int, n: int, d: int = 0, sms: int = _H100_SMS) -> LaunchPlan:
+    """The launch of ``csrc/ts_cov.cu`` for m candidates and n training rows.
+    Its first pass runs one block per upper 128-tile of the (m, m) output
+    and split of the n axis. Split s sums vᵀv over the rows [s·chunk − lead,
+    (s+1)·chunk − lead) ∩ [0, n); the first split also computes the kernel
+    term, which costs about ``lead`` = 2d + ``_TS_LEAD`` rows, so the blocks
+    carry equal work. As many splits as fill ``_TS_RESIDENT`` blocks on
+    every SM while each keeps ``_TS_MIN_CHUNK`` rows, and at least as many
+    as keep every chunk within ``_TS_MAX_CHUNK`` rows (a short partial sum
+    keeps the f32 error low). Each split and the kernel term take a
+    workspace slot per tile: (splits + 1) × batch × tiles × 128² elements.
+    The second pass finishes each tile from its slots."""
+    side = _cdiv(m, _TS_TILE)
+    plan = LaunchPlan(_TS_TILE, side, side, True)
+    lead = 2 * d + _TS_LEAD
+    work = n + lead
+    fill = max(1, _TS_RESIDENT * sms // (batch * plan.blocks))
+    splits = max(1, _cdiv(work, _TS_MAX_CHUNK), min(fill, work // _TS_MIN_CHUNK))
+    chunk = _cdiv(work, splits)
+    splits = _cdiv(work, chunk)
+    plan = dataclasses.replace(plan, splits=splits, chunk=chunk, lead=lead,
+                               workspace=(splits + 1) * batch * plan.blocks * _TS_TILE**2)
+    _check_grid(plan, batch, n, m, d, 4 * plan.blocks)  # the second pass: a block per quarter tile
+    return plan
+
+
+def _param(value, like: Tensor) -> Tensor:
+    """A scalar or per-batch parameter as a tensor of like's dtype and device.
+    A Python number becomes a device tensor by a fill, not by a copy from
+    the host, which would wait for the device."""
+    if isinstance(value, (int, float)):
+        return torch.full((), float(value), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _per_batch(value: Tensor, batch: int, what: str) -> Tuple[Tensor, int]:
+    """A scalar or per-batch parameter as the kernels read it: the tensor and
+    its batch stride in elements (0 when one value serves every entry)."""
+    if value.numel() == 1:
+        return value, 0
+    if value.dim() != 1 or value.shape[0] != batch:
+        raise ValueError(f"{what} must be a scalar or ({batch},), got {tuple(value.shape)}")
+    return value, value.stride(0)
+
+
 def kernel_matrix_reference(
     z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
     kernel_name: str = "matern52", add_noise: bool = False,
@@ -195,49 +319,56 @@ def _check(z1: Tensor, z2: Tensor, kernel_name: str):
         raise ValueError(f"z1 and z2 differ in dtype or device: {z1.dtype}/{z1.device} vs {z2.dtype}/{z2.device}")
 
 
+def _kernel_matrix_args(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor, same: bool):
+    """What ``csrc/kernel_matrix.cu`` is launched with: (B, n, d)/(B, m, d)
+    inputs (a 2-D pair as a batch of one), outputscale and noise each with
+    its batch stride, and the plan, symmetric when the caller passed one
+    tensor as both inputs (``same``, decided before the batch axis is
+    added: ``z1[None]`` and ``z2[None]`` are different objects)."""
+    if z1.dim() == 2:
+        z1, z2 = z1[None], z2[None]
+    batch, n, d = z1.shape
+    plan = kernel_matrix_plan(batch, n, z2.shape[1], d, same)
+    return z1, z2, _per_batch(outputscale, batch, "outputscale"), _per_batch(noise, batch, "noise"), plan
+
+
 def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
-            kernel_name: str, add_noise: bool) -> Tensor:
-    """Launch the CUDA kernel on (B, n, d) x (B, m, d) CUDA tensors."""
+            kernel_name: str, add_noise: bool, same: bool) -> Tensor:
+    """Launch the CUDA kernel on (n, d)/(m, d) or (B, n, d)/(B, m, d) CUDA
+    tensors: one call into the library."""
     global LAUNCHES
     if z1.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {z1.dtype}")
     if not (z1.is_contiguous() and z2.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous inputs")
-    batch, n, d = z1.shape
-    m = z2.shape[1]
-    if batch > _MAX_GRID_YZ or (n + _TILE - 1) // _TILE > _MAX_GRID_YZ or max(n, m, d) >= 2**31:
-        raise ValueError(f"shape too large for the CUDA kernel: batch {batch}, n {n}, m {m}, d {d}")
+    if z1.shape[-2] == 0 or z2.shape[-2] == 0 or (z1.dim() == 3 and z1.shape[0] == 0):
+        return torch.empty((*z1.shape[:-1], z2.shape[-2]), dtype=z1.dtype, device=z1.device)
+    a, b, (scale, scale_stride), (nz, noise_stride), plan = _kernel_matrix_args(z1, z2, outputscale, noise, same)
+    batch, n, d = a.shape
+    m = b.shape[1]
     out = torch.empty((batch, n, m), dtype=z1.dtype, device=z1.device)
-    if out.numel() == 0:
-        return out
-    scal = torch.stack([
-        torch.as_tensor(outputscale, dtype=z1.dtype, device=z1.device).expand(batch),
-        torch.as_tensor(noise, dtype=z1.dtype, device=z1.device).expand(batch),
-    ], dim=-1).contiguous()
     lib = _load("kernel_matrix")
-    with torch.cuda.device(z1.device):
-        stream = torch.cuda.current_stream(z1.device).cuda_stream
+    index = z1.device.index
+    with torch.cuda.device(index):
         err = lib.kernel_matrix_launch(
-            z1.data_ptr(), z2.data_ptr(), scal.data_ptr(), out.data_ptr(),
-            batch, n, m, d, KERNEL_IDS[kernel_name], int(add_noise),
-            int(z1.dtype == torch.float64), stream,
+            a.data_ptr(), b.data_ptr(), scale.data_ptr(), scale_stride, nz.data_ptr(), noise_stride,
+            out.data_ptr(), batch, n, m, d, int(plan.symmetric), KERNEL_IDS[kernel_name],
+            int(add_noise), int(z1.dtype == torch.float64), torch.cuda.current_stream(index).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"kernel_matrix launch failed: {lib.kernel_matrix_error_string(err).decode()} ({err})"
         )
     LAUNCHES += 1
-    return out
+    return out if z1.dim() == 3 else out[0]
 
 
-def _forward(z1, z2, outputscale, noise, kernel_name, add_noise):
+def _forward(z1, z2, outputscale, noise, kernel_name, add_noise, same):
     if z1.device.type == "cpu":
         return kernel_matrix_reference(z1, z2, outputscale, noise, kernel_name, add_noise)
     if z1.device.type != "cuda":
         raise ValueError(f"kernel_matrix runs on CUDA or CPU tensors, not {z1.device}")
-    if z1.dim() == 2:
-        return _launch(z1[None], z2[None], outputscale, noise, kernel_name, add_noise)[0]
-    return _launch(z1, z2, outputscale, noise, kernel_name, add_noise)
+    return _launch(z1, z2, outputscale, noise, kernel_name, add_noise, same)
 
 
 class KernelMatrix(torch.autograd.Function):
@@ -248,7 +379,7 @@ class KernelMatrix(torch.autograd.Function):
     def forward(ctx, z1, z2, outputscale, noise, kernel_name, add_noise):
         ctx.kernel_name, ctx.add_noise, ctx.same = kernel_name, add_noise, z2 is z1
         ctx.save_for_backward(z1, z2, outputscale, noise)
-        return _forward(z1, z2, outputscale, noise, kernel_name, add_noise)
+        return _forward(z1, z2, outputscale, noise, kernel_name, add_noise, ctx.same)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -278,8 +409,7 @@ def kernel_matrix(
     through ``kernel_matrix_reference``. Pass the same tensor as ``z1`` and
     ``z2`` for K(Z, Z)."""
     _check(z1, z2, kernel_name)
-    outputscale = torch.as_tensor(outputscale, dtype=z1.dtype, device=z1.device)
-    noise = torch.as_tensor(noise, dtype=z1.dtype, device=z1.device)
+    outputscale, noise = _param(outputscale, z1), _param(noise, z1)
     return KernelMatrix.apply(z1, z2, outputscale, noise, kernel_name, add_noise)
 
 
@@ -309,31 +439,44 @@ def _check_ts(zs: Tensor, v: Tensor, kernel_name: str):
         raise ValueError(f"zs and v differ in dtype or device: {zs.dtype}/{zs.device} vs {v.dtype}/{v.device}")
 
 
+def _ts_cov_args(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, sms: int = _H100_SMS):
+    """What ``csrc/ts_cov.cu`` is launched with: contiguous (B, m, d)/(B, n, m)
+    inputs (a 2-D pair as a batch of one), outputscale and jitter each with
+    its batch stride, and the plan."""
+    if zs.dim() == 2:
+        zs, v = zs[None], v[None]
+    zs, v = zs.contiguous(), v.contiguous()
+    batch, m, d = zs.shape
+    plan = ts_cov_plan(batch, m, v.shape[1], d, sms)
+    return zs, v, _per_batch(outputscale, batch, "outputscale"), _per_batch(jitter, batch, "jitter"), plan
+
+
 def _launch_ts_cov(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, kernel_name: str) -> Tensor:
-    """Launch the CUDA kernel on (B, m, d) x (B, n, m) CUDA tensors."""
+    """Launch the CUDA kernel on (m, d)/(n, m) or (B, m, d)/(B, n, m) CUDA
+    tensors: one call into the library (its two passes)."""
     global TS_COV_LAUNCHES
     if zs.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {zs.dtype}")
-    zs, v = zs.contiguous(), v.contiguous()
-    batch, m, d = zs.shape
-    n = v.shape[1]
-    if batch > _MAX_GRID_YZ or (m + _TS_TILE - 1) // _TS_TILE > _MAX_GRID_YZ or max(n, m, d) >= 2**31:
-        raise ValueError(f"shape too large for the CUDA kernel: batch {batch}, m {m}, n {n}, d {d}")
+    if zs.shape[-2] == 0 or (zs.dim() == 3 and zs.shape[0] == 0):
+        return torch.empty((*zs.shape[:-1], zs.shape[-2]), dtype=zs.dtype, device=zs.device)
+    z, vv, (scale, scale_stride), (jit, jitter_stride), plan = _ts_cov_args(
+        zs, v, outputscale, jitter, _sms(zs.device))
+    batch, m, d = z.shape
     out = torch.empty((batch, m, m), dtype=zs.dtype, device=zs.device)
-    if out.numel() == 0:
-        return out
-    scal = torch.stack([outputscale.expand(batch), jitter.expand(batch)], dim=-1).contiguous()
+    ws = torch.empty(plan.workspace, dtype=zs.dtype, device=zs.device)
     lib = _load("ts_cov")
-    with torch.cuda.device(zs.device):
-        stream = torch.cuda.current_stream(zs.device).cuda_stream
+    index = zs.device.index
+    with torch.cuda.device(index):
         err = lib.ts_cov_launch(
-            zs.data_ptr(), v.data_ptr(), scal.data_ptr(), out.data_ptr(),
-            batch, m, n, d, KERNEL_IDS[kernel_name], int(zs.dtype == torch.float64), stream,
+            z.data_ptr(), vv.data_ptr(), scale.data_ptr(), scale_stride, jit.data_ptr(), jitter_stride,
+            out.data_ptr(), ws.data_ptr(), batch, m, vv.shape[1], d,
+            plan.splits, plan.chunk, plan.lead, KERNEL_IDS[kernel_name], int(zs.dtype == torch.float64),
+            torch.cuda.current_stream(index).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ts_cov launch failed: {lib.ts_cov_error_string(err).decode()} ({err})")
     TS_COV_LAUNCHES += 1
-    return out
+    return out if zs.dim() == 3 else out[0]
 
 
 def ts_cov(zs: Tensor, v: Tensor, outputscale, jitter, kernel_name: str = "matern52") -> Tensor:
@@ -345,12 +488,9 @@ def ts_cov(zs: Tensor, v: Tensor, outputscale, jitter, kernel_name: str = "mater
     CUDA tensors go through ``csrc/ts_cov.cu`` (or raise); CPU tensors
     through ``ts_cov_reference``."""
     _check_ts(zs, v, kernel_name)
-    outputscale = torch.as_tensor(outputscale, dtype=zs.dtype, device=zs.device)
-    jitter = torch.as_tensor(jitter, dtype=zs.dtype, device=zs.device)
+    outputscale, jitter = _param(outputscale, zs), _param(jitter, zs)
     if zs.device.type == "cpu":
         return ts_cov_reference(zs, v, outputscale, jitter, kernel_name)
     if zs.device.type != "cuda":
         raise ValueError(f"ts_cov runs on CUDA or CPU tensors, not {zs.device}")
-    if zs.dim() == 2:
-        return _launch_ts_cov(zs[None], v[None], outputscale, jitter, kernel_name)[0]
     return _launch_ts_cov(zs, v, outputscale, jitter, kernel_name)

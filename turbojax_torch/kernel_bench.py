@@ -1,0 +1,291 @@
+"""The hand-written kernels timed on one GPU at the shapes the paths launch.
+
+    python3 -m turbojax_torch.kernel_bench
+    python3 -m turbojax_torch.kernel_bench --baseline DIR
+
+For each shape one JSON line: the kernel's time and the plain version's by
+CUDA events over back-to-back calls (at small shapes that is the host's
+time per call), the kernel's device time per call from ``torch.profiler``,
+the bound (the larger of the bytes over 3.35 TB/s and the operations over
+67 TFLOP/s in fp32 or 34 in fp64, an H100 SXM's peaks) with the resource
+that sets it, the kernel's share of it, and ``library_ms`` (events) and
+``library_device_ms`` (profiler), one PyTorch call's time where one
+computes a comparable function (``v.mT @ v`` for ts_cov's Gram part; none
+for the kernel matrix). Then the
+``bench.py``-style iteration with the kernels and with the plain versions.
+
+``--baseline DIR`` also times, in turns with this tree's kernels, the
+kernels of another checkout's ``turbojax_torch/cuda_kernels.py`` (for
+example the parent commit unpacked from ``git archive`` into a git-ignored
+directory), built from that checkout's ``csrc/`` into its own ``build/``.
+Every line carries the card's ``nvidia-smi`` name and power limit. Needs a
+CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from turbojax_torch import cuda_kernels as CK
+
+HBM_BYTES_PER_S = 3.35e12
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+# (label, batch, n, m, d, K(Z, Z)): config 5's grid at the 2000 and 512
+# rungs, its polish forward and cached factor, the small regions' factor,
+# a TS cross matrix; config 4's grid and factor; the bench's matrices
+KM_SHAPES = [
+    ("grid16_2000x2000_d60", 16, 2000, 2000, 60, True),
+    ("polish_2000x2000_d60", 1, 2000, 2000, 60, True),
+    ("grid64_512x512_d60", 64, 512, 512, 60, True),
+    ("regions4_512x512_d60", 4, 512, 512, 60, True),
+    ("ts_cross_2000x1000_d60", 1, 2000, 1000, 60, False),
+    ("grid15_1000x1000_d10", 15, 1000, 1000, 10, True),
+    ("kxx_1000x1000_d10", 1, 1000, 1000, 10, True),
+    ("cross_1000x1000_d10", 1, 1000, 1000, 10, False),
+    ("bench_kxx_2048x2048_d10", 1, 2048, 2048, 10, True),
+    ("bench_cross_2048x5000_d10", 1, 2048, 5000, 10, False),
+]
+# (label, batch, m, n, d): the single chunks the paths launch
+TS_SHAPES = [
+    ("path_1x1000_n2000_d60", 1, 1000, 2000, 60),
+    ("path_1x1000_n512_d60", 1, 1000, 512, 60),
+    ("path_1x1000_n1000_d10", 1, 1000, 1000, 10),
+    ("bench_1x1000_n2048_d10", 1, 1000, 2048, 10),
+]
+KM_HEADLINE, TS_HEADLINE = KM_SHAPES[0][0], TS_SHAPES[0][0]
+_EPILOGUE_OPS = 12  # per distinct entry: d² from the norms, clamp, sqrt, exp and the polynomial
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _bound(nbytes: float, ops: float, dtype) -> Dict[str, object]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def kernel_matrix_bound(batch, n, m, d, same, dtype=torch.float32) -> Dict[str, object]:
+    """Each input read once, the output written once; 2d + 12 operations
+    per distinct entry (K(Z, Z) has n(n+1)/2 of them)."""
+    size = torch.finfo(dtype).bits // 8
+    entries = batch * (n * (n + 1) // 2 if same else n * m)
+    nbytes = size * batch * (n * d + (0 if same else m * d) + n * m)
+    return _bound(nbytes, entries * (2 * d + _EPILOGUE_OPS), dtype)
+
+
+def ts_cov_bound(batch, m, n, d, dtype=torch.float32) -> Dict[str, object]:
+    """zs and v read once, the output written once; 2(n + d) + 12 operations
+    per distinct entry of the symmetric output."""
+    size = torch.finfo(dtype).bits // 8
+    entries = batch * m * (m + 1) // 2
+    nbytes = size * batch * (m * d + n * m + m * m)
+    return _bound(nbytes, entries * (2 * (n + d) + _EPILOGUE_OPS), dtype)
+
+
+def _event_ms(fn: Callable[[], object], reps: int) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(fns: Dict[str, Callable[[], object]], reps: int, warmup: int = 3) -> Dict[str, float]:
+    """ms per call of each function by CUDA events: one window each in the
+    given order, then one each in reverse order; the mean of the two."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    order = list(fns)
+    times = {k: [] for k in order}
+    for label in order + order[::-1]:
+        times[label].append(_event_ms(fns[label], reps))
+    return {k: 0.5 * (a + b) for k, (a, b) in times.items()}
+
+
+def device_ms(fn: Callable[[], object], reps: int) -> Optional[float]:
+    """Device time per call from torch.profiler: the kernels' and copies'
+    own time over ``reps`` calls. None when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from turbojax_torch.profile_config5 import _self_device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages() if e.cpu_time_total == 0)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def _inputs_km(gen, batch, n, m, d, same):
+    z1 = torch.rand((batch, n, d), generator=gen, device="cuda") / math.sqrt(d / 24)
+    z1 = (z1 - z1.mean(dim=-2, keepdim=True)).contiguous()
+    z2 = z1 if same else (torch.rand((batch, m, d), generator=gen, device="cuda") / math.sqrt(d / 24)).contiguous()
+    if batch == 1:
+        z1 = z1[0]
+        z2 = z1 if same else z2[0]
+        return z1, z2, torch.tensor(1.3, device="cuda"), torch.tensor(1e-3, device="cuda")
+    return z1, z2, torch.full((batch,), 1.3, device="cuda"), torch.full((batch,), 1e-3, device="cuda")
+
+
+def _inputs_ts(gen, batch, m, n, d):
+    zs = torch.rand((batch, m, d), generator=gen, device="cuda") / math.sqrt(d / 24)
+    zs = (zs - zs.mean(dim=-2, keepdim=True)).contiguous()
+    v = torch.randn((batch, n, m), generator=gen, device="cuda") / math.sqrt(n)
+    jitter = torch.zeros((), device="cuda")
+    if batch == 1:
+        return zs[0], v[0], torch.tensor(1.3, device="cuda"), jitter
+    return zs, v, torch.full((batch,), 1.3, device="cuda"), jitter
+
+
+def _line(kind, label, dims, bound, times, dev, base_dev, smi, lib_dev=None) -> Dict[str, object]:
+    line = {"kernel": kind, "shape": label, **dims, **bound, "kernel_ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": times.get("library"), "library_device_ms": lib_dev,
+            "device_ms": dev, "share_of_bound": (bound["bound_ms"] / dev) if dev else None, "card": smi}
+    if "baseline" in times:
+        line.update(baseline_ms=times["baseline"], baseline_device_ms=base_dev)
+    return line
+
+
+def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict[str, Dict[str, object]]:
+    """Times both kernels at KM_SHAPES and TS_SHAPES in float32 (with
+    ``baseline``, another cuda_kernels module, in turns); returns {label:
+    line} and passes each line to ``emit`` as it is measured."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    lines = {}
+    mods = {"kernel": CK, **({"baseline": baseline} if baseline is not None else {})}
+    for label, batch, n, m, d, same in KM_SHAPES:
+        z1, z2, s, nz = _inputs_km(gen, batch, n, m, d, same)
+        fns = {"plain": lambda: CK.kernel_matrix_reference(z1, z2, s, nz, "matern52", same)}
+        fns.update({k: (lambda mod=mod: mod.kernel_matrix(z1, z2, s, nz, "matern52", same)) for k, mod in mods.items()})
+        times = in_turns(fns, reps)
+        dev = device_ms(fns["kernel"], reps)
+        base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
+        dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same}
+        lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(batch, n, m, d, same), times, dev,
+                             base_dev, smi)
+        emit(lines[label])
+        del z1, z2
+    for label, batch, m, n, d in TS_SHAPES:
+        zs, v, s, jit = _inputs_ts(gen, batch, m, n, d)
+        fns = {"plain": lambda: CK.ts_cov_reference(zs, v, s, jit, "matern52"),
+               "library": lambda: torch.matmul(v.mT, v)}
+        fns.update({k: (lambda mod=mod: mod.ts_cov(zs, v, s, jit, "matern52")) for k, mod in mods.items()})
+        times = in_turns(fns, reps)
+        dev = device_ms(fns["kernel"], reps)
+        base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
+        plan = CK.ts_cov_plan(batch, m, n, d)
+        dims = {"batch": batch, "m": m, "n": n, "d": d, "splits": plan.splits, "chunk": plan.chunk}
+        lines[label] = _line("ts_cov", label, dims, ts_cov_bound(batch, m, n, d), times, dev, base_dev, smi,
+                             device_ms(fns["library"], reps))
+        emit(lines[label])
+    return lines
+
+
+BENCH_N, BENCH_N_MAX, BENCH_D, BENCH_CAND, BENCH_Q, BENCH_CHUNK = 2000, 2048, 10, 5000, 10, 1000
+
+
+def bench_iteration(check: Callable[[bool, str], None]) -> Dict[str, float]:
+    """bench.py's iteration at N = 2000 in a 2048 buffer: make_gp_state,
+    gp_posterior over 5000 candidates, EI, thompson_select q = 10 in chunks
+    of 1000, with the kernels (use_kernel=None) and with the plain versions
+    (use_kernel=False); host clock around synchronized iterations, plain,
+    kernel, kernel, plain, five iterations each. ``check(ok, what)`` is
+    given the finiteness of each iteration's output."""
+    from turbojax_torch import acq as A
+    from turbojax_torch import gp as G
+    from turbojax_torch import linalg as L
+    from turbojax_torch.config import GPConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dev, f32 = "cuda", torch.float32
+    x = torch.rand((BENCH_N, BENCH_D), generator=gen, device=dev, dtype=f32)
+    y = torch.sin(3 * x[:, 0]) + 0.1 * torch.randn(BENCH_N, generator=gen, device=dev, dtype=f32)
+    cands = torch.rand((BENCH_CAND, BENCH_D), generator=gen, device=dev, dtype=f32)
+    x_buf = torch.zeros((BENCH_N_MAX, BENCH_D), device=dev, dtype=f32)
+    x_buf[:BENCH_N] = x
+    y_buf = torch.zeros((BENCH_N_MAX,), device=dev, dtype=f32)
+    y_buf[:BENCH_N] = y
+    mask = L.row_mask(BENCH_N_MAX, BENCH_N, dev)
+    base = GPConfig(kernel="matern52")
+    raw = G.default_params(BENCH_D, base, f32, dev)
+    configs = {"kernel": base, "plain": dataclasses.replace(base, use_kernel=False)}
+
+    def iteration(config):
+        state = G.make_gp_state(x_buf, y_buf, mask, raw, config)
+        mu, var = G.gp_posterior(state, cands, config)
+        best = torch.where(mask, y_buf, torch.inf).min()
+        ei = A.expected_improvement(mu, var, best)
+        xs, vals = A.thompson_select(state, cands, BENCH_Q, config, BENCH_CHUNK, gen)
+        check(bool(torch.isfinite(ei).all() & torch.isfinite(xs).all()), "bench iteration: non-finite output")
+
+    def timed(label, reps=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            iteration(configs[label])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    for label in ("plain", "kernel", "plain", "kernel"):
+        iteration(configs[label])  # warm up both
+    p1, k1, k2, p2 = timed("plain"), timed("kernel"), timed("kernel"), timed("plain")
+    return {"kernel": 0.5 * (k1 + k2), "plain": 0.5 * (p1 + p2)}
+
+
+def load_baseline(tree: str):
+    """Another checkout's ``turbojax_torch/cuda_kernels.py`` as a module of
+    its own, its kernels built from that checkout's ``csrc/``."""
+    path = os.path.join(os.path.abspath(tree), "turbojax_torch", "cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location("baseline_cuda_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build()
+    return mod
+
+
+def _check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(what)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--baseline", default=None, help="a checkout whose kernels to time in turns with these")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bench measures the card: torch.cuda.is_available() is False")
+    smi = card()
+    CK.build()
+    baseline = load_baseline(args.baseline) if args.baseline else None
+    measure_kernels(smi, baseline, args.reps, emit=lambda line: print(json.dumps(line), flush=True))
+    print(json.dumps({"bench_iteration_ms": bench_iteration(_check), "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,22 @@
 """Config 5 (``turbom5_rover60``) on one GPU: regret over seeds, and a
-profiler split of one late iteration.
+profiler split of one late iteration; config 4 (``turbo1_ackley10``) over
+seeds too.
 
     python -m turbojax_torch.profile_config5 --seeds 0 1 2
+    python -m turbojax_torch.profile_config5 --config turbo1_ackley10 --seeds 0 1 2 3 4 5 6 7 8 9
     python -m turbojax_torch.profile_config5 --profile-iteration 150
 
-``--seeds`` runs the full configuration once per seed and prints one JSON
-line each (best_y, regret, wall, kernel launches), then the median regret.
-``--profile-iteration K`` runs seed 0 up to iteration K, traces iteration K
-with ``torch.profiler`` and prints its split: the device's busy time and
-idle share, device time by kernel family (Cholesky, triangular solves,
-GEMM, the two hand-written kernels), the polish backward's device time,
-and the host time inside the fit, polish-backward, Thompson and
-TS-covariance spans. Every line
-carries the card's ``nvidia-smi`` name and power limit. Needs a CUDA GPU.
+``--seeds`` runs the full configuration (``--config``, config 5 unless
+given) once per seed through ``optimize``, as ``chip_smoke.py`` does, and
+prints one JSON line each (best_y, regret, wall, kernel launches), then the
+median regret and best_y.
+``--profile-iteration K`` runs config 5's seed 0 up to iteration K, traces
+iteration K with ``torch.profiler`` and prints its split: the device's busy
+time and idle share, device time by kernel family (Cholesky, triangular
+solves, GEMM, the two hand-written kernels), the polish backward's device
+time, and the host time inside the fit, polish-backward, Thompson and
+TS-covariance spans. Every line carries the card's ``nvidia-smi`` name and
+power limit. Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from turbojax_torch import turbo_m as TM
 
 _SPANS = ("turbom.fit", "gp.polish_backward", "turbom.thompson", "gp.ts_cov")
 _FAMILIES = {  # kernel-name fragment -> family
-    "ts_cov_tile": "ts_cov kernel", "kernel_matrix_tile": "kernel_matrix kernel",
+    "ts_cov_partial": "ts_cov kernel", "ts_cov_finish": "ts_cov kernel", "kernel_matrix_tile": "kernel_matrix kernel",
     "potrf": "Cholesky", "cholesky": "Cholesky", "trsm": "triangular solve",
     "gemm": "GEMM", "gemv": "GEMM",
 }
@@ -59,25 +63,37 @@ def _run(seed: int, on_iteration=None):
                          on_iteration=on_iteration), bench
 
 
-def regret_over_seeds(seeds: List[int], card: str) -> float:
+def run_config(name: str, seed: int, device: str = "cuda"):
+    """One full run of a registered configuration through ``optimize``;
+    returns (result, benchmark)."""
+    from turbojax_torch import optimize
+
+    cfg = R.get_config(name)
+    bench = B.get_benchmark(cfg.benchmark)
+    t = cfg.turbo
+    res = optimize(bench.fn, bench.lb, bench.ub, t.max_evals, method=cfg.method, m=cfg.m, n_init=t.n_init,
+                   batch_size=t.batch_size, n_candidates=t.n_candidates, ts_chunk=t.ts_chunk, gp_config=cfg.gp,
+                   seed=seed, device=device)
+    return res, bench
+
+
+def regret_over_seeds(name: str, seeds: List[int], card: str) -> float:
     regrets = []
     for seed in seeds:
         torch.cuda.synchronize()
         CK.LAUNCHES = CK.TS_COV_LAUNCHES = 0
         t0 = time.perf_counter()
-        (carries, trace), bench = _run(seed)
+        res, bench = run_config(name, seed)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        best = float(carries.best_y.min())
-        regrets.append(best - bench.optimum)
-        print(json.dumps({"seed": seed, "best_y": best, "regret": regrets[-1], "wall_s": wall,
-                          "evaluations": len(trace) * R.get_config("turbom5_rover60").turbo.batch_size,
-                          "iterations": len(trace),
+        regrets.append(res.best_y - bench.optimum)
+        print(json.dumps({"config": name, "seed": seed, "best_y": res.best_y, "regret": regrets[-1], "wall_s": wall,
+                          "evaluations": len(res.y_hist), "iterations": len(res.incumbent_trace),
                           "launches": {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES},
                           "card": card}), flush=True)
     median = float(np.median(regrets))
-    print(json.dumps({"seeds": seeds, "median_regret": median, "median_best_y": median + bench.optimum,
-                      "card": card}), flush=True)
+    print(json.dumps({"config": name, "seeds": seeds, "median_regret": median,
+                      "median_best_y": median + bench.optimum, "card": card}), flush=True)
     return median
 
 
@@ -150,6 +166,7 @@ def profile_iteration(k: int, card: str, trace_path: Optional[str] = None) -> No
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default="turbom5_rover60", choices=sorted(R.CONFIGS))
     ap.add_argument("--seeds", type=int, nargs="*", default=[])
     ap.add_argument("--profile-iteration", type=int, default=None)
     ap.add_argument("--trace", default=None, help="write the traced iteration's Chrome trace here")
@@ -160,7 +177,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.profile_iteration is not None:
         profile_iteration(args.profile_iteration, card, args.trace)
     if args.seeds:
-        regret_over_seeds(args.seeds, card)
+        regret_over_seeds(args.config, args.seeds, card)
     return 0
 
 
