@@ -22,7 +22,10 @@ non-zero and the final line is not printed:
    chunk, d = 60 with n = 2000 and 512, d = 10 with n = 1000 and 2048: n
    split in four, the last split shorter), config 5's five-chunk batches,
    m = 1, 63, 65 and 999, n = 1 and n = 1750, and a trust region of side
-   0.5**7 at ℓ = 0.01. Tolerances: the kernel matrix rtol 2e-5 / atol 2e-6
+   0.5**7 at ℓ = 0.01; and plain BO's shapes: K(Z, Z) at 60 points, d = 2
+   (config 1) and four lanes of 112 points, d = 6 (config 2's L-BFGS
+   restarts), their posterior cross matrices against 2000 candidates and the
+   one-row cross of an append. Tolerances: the kernel matrix rtol 2e-5 / atol 2e-6
    in f32 and rtol 1e-12 in f64, the TS covariance 3e-5·outputscale in f32
    (the TS ladder's first rung) and 1e-12·outputscale in f64. For each case
    the kernel's and the plain version's f32 errors against the f64 plain
@@ -31,7 +34,7 @@ non-zero and the final line is not printed:
    symmetric, two calls bitwise equal, and in f32 the diagonal exact
    (K(Z, Z)'s is outputscale + noise; ts_cov's kernel term, with v = 0, is
    outputscale). Then the kernel-matrix gradients (kernel forward, plain
-   backward) against plain autograd at (16, 2048, 60), and a small GP
+   backward) against plain autograd at (16, 2048, 60) and (4, 112, 6), and a small GP
    problem on the card (float64, through the kernels) against the same
    problem on the CPU (the plain versions);
 3. ``turbojax_torch.kernel_bench``: both kernels at the shapes the paths
@@ -39,17 +42,32 @@ non-zero and the final line is not printed:
    time (torch.profiler), its bound and share and, for ts_cov, the time of
    ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
    2048 buffer, 5000 candidates, EI, Thompson q = 10 in chunks of 1000)
-   with the kernels and with the plain versions;
+   with the kernels and with the plain versions; ``bo._append_batch``'s
+   appends against one refactorization at N = 64, 512 and 2048, and one
+   L-BFGS fit at (4, 112, 6) with its loss evaluations and wall;
 4. config 4 (``turbo1_ackley10``: TuRBO-1, Ackley-10D, 1000 evaluations,
    seed 0) end to end through ``turbojax_torch.optimize``;
 5. config 5 (``turbom5_rover60``: TuRBO-m with m = 5, rover-60D, 2000
    evaluations, 5000 candidates per region, TS chunks of 1000, the
-   grid+Adam trainer, seed 0) end to end through ``optimize``.
+   grid+Adam trainer, seed 0) end to end through ``optimize``;
+6. plain BO through ``run_bo``: config 1 (``branin_ei``: 60 evaluations,
+   fixed hypers, EI) with the incremental Cholesky and again with
+   refactorizations, and config 2 (``hartmann6_lbfgs``: 112 evaluations,
+   four L-BFGS restarts per iteration), seed 0;
+7. config 3 (``ts_q10``: one Thompson suggestion of q = 10 from 5000
+   candidates in chunks of 1000 over 2000 training points), and the
+   ask/tell ``Optimizer`` with the objective evaluated on the host in
+   numpy: TuRBO-1 at config 4's sizes (Ackley-10D, 1000 evaluations,
+   q = 10), a short plain-BO run (Branin, EI, L-BFGS refits) and a short
+   TuRBO-m run (m = 2, rover-60D).
 
-In phases 4 and 5 the launch counters are reset just before the run and
-read just after; each fails unless both kernels were launched and the
-result is finite and better than the initial design. Then one
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``.
+In phases 4 to 7 the launch counters are set to 0 just before each run and
+read just after; a run fails unless the kernels of its path were launched
+(the kernel matrix on every path; the TS covariance wherever Thompson
+sampling runs: configs 3, 4 and 5 and the TuRBO ask/tell runs) and the
+result is finite, its incumbent trace non-increasing, and its best value
+better than the initial design's. Then one ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": ...}``.
 """
 
 import json
@@ -143,6 +161,19 @@ def _cases(torch, gen):
         out.append((f"ragged_{n}x{m}_d10", z1, z2, one, nz))
     z1, z2 = centered(unit(2000, 60) / ell60, unit(1000, 60) / ell60)
     out.append(("ts_cross_2000x1000_d60", z1, z2, one, nz))
+    # plain BO: config 1 (60 points, d = 2) and config 2 (112 points, d = 6, four L-BFGS lanes)
+    for tag, n, d, lanes in (("bo1", 60, 2, 1), ("bo2", 112, 6, 4)):
+        ell_d = math.sqrt(d / 24)
+        if lanes == 1:
+            zc = centered(unit(n, d) / ell_d)
+            out.append((f"{tag}_kzz_{n}_d{d}", zc, zc, one, nz))
+        else:
+            zc = centered(unit(n, d)[None] / (ell_d * rows([0.5, 0.8, 1.0, 1.6])[:, None, None]))
+            out.append((f"{tag}_lanes{lanes}_kzz_{n}_d{d}", zc, zc, rows([1.3, 0.7, 2.0, 1.0]), rows([1e-2, 1e-3, 1e-4, 0.1])))
+        z1, z2 = centered(unit(n, d) / ell_d, unit(2000, d) / ell_d)
+        out.append((f"{tag}_cross_{n}x2000_d{d}", z1, z2, one, nz))
+        z1, z2 = centered(unit(1, d) / ell_d, unit(n, d) / ell_d)
+        out.append((f"{tag}_append_1x{n}_d{d}", z1, z2, one, nz))
     # a trust region of side 0.5**7 around one point, at a small fitted ℓ
     c0 = unit(1, 10)
     x1 = c0 + 0.5**7 * (unit(1000, 10) - 0.5)
@@ -314,25 +345,28 @@ def _ts_cov_parity(torch, CK):
 
 def _kernel_matrix_grad_parity(torch, CK):
     """KernelMatrix (kernel forward, plain backward) against plain autograd
-    at the polish's shape, (16, 2048, 60) in float32. Returns the largest
-    gradient error relative to the gradient's largest entry."""
+    at the polish's shape, (16, 2048, 60), and at config 2's L-BFGS lanes,
+    (4, 112, 6), in float32. Returns the largest gradient error relative to
+    the gradient's largest entry."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    z0 = torch.rand((16, 2048, 60), generator=gen, device="cuda") / math.sqrt(60 / 24)
-    z0 = z0 - z0.mean(dim=-2, keepdim=True)
-    upstream = torch.randn((16, 2048, 2048), generator=gen, device="cuda")
     worst = 0.0
-    for name in CK.KERNEL_IDS:
-        grads = []
-        for fn in (CK.kernel_matrix, CK.kernel_matrix_reference):
-            z = z0.clone().requires_grad_(True)
-            s = torch.full((16,), 1.3, device="cuda", requires_grad=True)
-            nz = torch.full((16,), 1e-2, device="cuda", requires_grad=True)
-            k = fn(z, z, s, nz, name, True)
-            grads.append(torch.autograd.grad((k * upstream).sum(), (z, s, nz)))
-        for g_kernel, g_plain in zip(*grads):
-            err = float((g_kernel - g_plain).abs().max() / g_plain.abs().max().clamp_min(1e-30))
-            _require(err <= 1e-5, f"KernelMatrix gradient ({name}) differs from plain autograd: {err:.3e}")
-            worst = max(worst, err)
+    for lanes, n, d in ((16, 2048, 60), (4, 112, 6)):
+        z0 = torch.rand((lanes, n, d), generator=gen, device="cuda") / math.sqrt(d / 24)
+        z0 = z0 - z0.mean(dim=-2, keepdim=True)
+        upstream = torch.randn((lanes, n, n), generator=gen, device="cuda")
+        for name in CK.KERNEL_IDS:
+            grads = []
+            for fn in (CK.kernel_matrix, CK.kernel_matrix_reference):
+                z = z0.clone().requires_grad_(True)
+                s = torch.full((lanes,), 1.3, device="cuda", requires_grad=True)
+                nz = torch.full((lanes,), 1e-2, device="cuda", requires_grad=True)
+                k = fn(z, z, s, nz, name, True)
+                grads.append(torch.autograd.grad((k * upstream).sum(), (z, s, nz)))
+            for g_kernel, g_plain in zip(*grads):
+                err = float((g_kernel - g_plain).abs().max() / g_plain.abs().max().clamp_min(1e-30))
+                _require(err <= 1e-5, f"KernelMatrix gradient ({name}, {lanes}x{n}x{d}) differs from plain autograd: "
+                                      f"{err:.3e}")
+                worst = max(worst, err)
     return worst
 
 
@@ -370,54 +404,116 @@ def phase3_timings(smi):
 
     lines = KB.measure_kernels(smi, emit=lambda line: _emit({"phase": 3, **line}))
     _emit({"phase": 3, "bench_iteration_ms": KB.bench_iteration(_require), "card": smi})
+    for line in KB.append_against_refactor(smi):
+        _require(line["max_abs_diff"] <= 1e-4, f"append and refactorization disagree: {line}")
+        _emit({"phase": 3, "chol": "append_against_refactor", **line})
+    _emit({"phase": 3, **KB.lbfgs_fit(smi)})
     return lines[KB.KM_HEADLINE], lines[KB.TS_HEADLINE]
 
 
-def _drive(torch, CK, name):
-    """Run one configuration (seed 0) with both launch counters set to 0 just
-    before and read just after; returns (result, benchmark, wall seconds,
-    {kernel: launches})."""
-    from turbojax_torch.profile_config5 import run_config
-
+def _counted(torch, CK, run):
+    """``run()`` with both launch counters set to 0 just before and read just
+    after; returns (its value, wall seconds, {kernel: launches})."""
     torch.cuda.synchronize()
     CK.LAUNCHES = 0
     CK.TS_COV_LAUNCHES = 0
     t0 = time.perf_counter()
-    res, bench = run_config(name, 0)
+    out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return res, bench, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES}
+    return out, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES}
 
 
-def _check_run(name, res, launches, init_index, iterations):
-    """Fails unless both kernels were launched, the incumbent trace has one
-    finite, non-increasing entry per batch, the history is finite (it holds
-    the last region's points, as the JAX package's does: none right after a
-    restart) and the best value beats the initial design's; returns the
-    latter."""
-    init_best = float(res.incumbent_trace[init_index])
-    for kernel, n in launches.items():
-        _require(n > 0, f"{name} ran without launching the {kernel} kernel")
-    trace = res.incumbent_trace.tolist()
+def _check_run(name, res, launches, init_best, iterations, kernels=("kernel_matrix", "ts_cov")):
+    """Fails unless the path's kernels were launched, the incumbent trace has
+    one finite, non-increasing entry per batch, the history is finite (under
+    TuRBO it holds the last region's points, as the JAX package's does: none
+    right after a restart) and the best value beats the initial design's."""
+    for kernel in kernels:
+        _require(launches[kernel] > 0, f"{name} ran without launching the {kernel} kernel")
+    trace = [float(v) for v in res.incumbent_trace]
     _require(len(trace) == iterations and all(map(math.isfinite, trace)), f"{name}: incumbent trace {trace[-3:]}")
     _require(all(b <= a for a, b in zip(trace, trace[1:])), f"{name}: the incumbent trace rises")
     _require(all(map(math.isfinite, res.y_hist.tolist())), f"{name}: non-finite history")
     _require(math.isfinite(res.best_y) and res.best_y == trace[-1], f"{name}: best_y {res.best_y} is not the trace's last")
     _require(res.best_y < init_best, f"{name}: best_y {res.best_y} does not improve on the initial design {init_best}")
-    return init_best
 
 
-def phase_config(torch, CK, smi, phase, name):
+def phase_config(torch, CK, smi, phase, name, chol_mode=None):
+    """One registered configuration at seed 0 through ``run_config``."""
     from turbojax_torch import registry as R
+    from turbojax_torch.profile_config5 import run_config
 
     cfg = R.get_config(name)
-    t = cfg.turbo
-    res, bench, wall, launches = _drive(torch, CK, name)
-    # the m init designs fill the first m·n_init/q batches
-    init_best = _check_run(name, res, launches, cfg.m * t.n_init // t.batch_size - 1, t.n_iters)
-    _emit({"phase": phase, "config": name, "m": cfg.m, "evals": len(res.y_hist), "wall_s": wall,
-           "best_y": res.best_y, "regret": res.best_y - bench.optimum, "init_design_best": init_best,
+    (res, bench), wall, launches = _counted(torch, CK, lambda: run_config(name, 0, chol_mode=chol_mode))
+    if cfg.method == "bo":
+        loop, kernels = cfg.bo, ("kernel_matrix",)  # EI: no Thompson sampling, so no TS covariance
+        init_best = float(res.y_hist[:loop.n_init].min())
+    else:
+        loop, kernels = cfg.turbo, ("kernel_matrix", "ts_cov")
+        # the m init designs fill the first m·n_init/q batches
+        init_best = float(res.incumbent_trace[cfg.m * loop.n_init // loop.batch_size - 1])
+    _check_run(name, res, launches, init_best, loop.n_iters, kernels)
+    _emit({"phase": phase, "config": name, "m": cfg.m, "chol_mode": chol_mode, "evals": len(res.y_hist),
+           "wall_s": wall, "best_y": res.best_y, "regret": res.best_y - bench.optimum, "init_design_best": init_best,
            "launches": launches, "iterations": len(res.incumbent_trace), "card": smi})
+    return launches
+
+
+def phase7_acquisition_only(torch, CK, smi):
+    """Config 3: one Thompson suggestion; q distinct finite points in the
+    box, both kernels launched."""
+    import numpy as np
+
+    from turbojax_torch import registry as R
+    from turbojax_torch.profile_config5 import run_config
+
+    cfg = R.get_config("ts_q10")
+    (res, bench), wall, launches = _counted(torch, CK, lambda: run_config("ts_q10", 0))
+    for kernel, n in launches.items():
+        _require(n > 0, f"ts_q10 ran without launching the {kernel} kernel")
+    xs = res.x_hist
+    _require(xs.shape == (cfg.bo.batch_size, bench.dim) and bool(np.isfinite(xs).all())
+             and bool(np.isfinite(res.y_hist).all()), "ts_q10: the suggestion is not q finite points")
+    _require(bool((xs >= np.asarray(bench.lb) - 1e-5).all() and (xs <= np.asarray(bench.ub) + 1e-5).all()),
+             "ts_q10: a suggested point lies outside the box")
+    _require(np.unique(xs, axis=0).shape[0] == cfg.bo.batch_size, "ts_q10: the suggestion repeats a point")
+    _emit({"phase": 7, "config": "ts_q10", "wall_s": wall, "best_of_suggestion": res.best_y, "launches": launches,
+           "candidates": cfg.bo.n_candidates, "q": cfg.bo.batch_size, "ts_chunk": cfg.bo.ts_chunk, "card": smi})
+    return launches
+
+
+def _ackley_numpy(x):
+    import numpy as np
+
+    return (-20.0 * np.exp(-0.2 * np.sqrt((x**2).mean(axis=-1))) - np.exp(np.cos(2 * np.pi * x).mean(axis=-1))
+            + 20.0 + np.e)
+
+
+def phase7_ask_tell(torch, CK, smi, label, method, bench_name, objective=None, **kwargs):
+    """An ask/tell run with the objective evaluated on the host in numpy
+    (``objective``, or the benchmark through a CPU tensor)."""
+    import numpy as np
+
+    from turbojax_torch import Optimizer
+    from turbojax_torch import benchmarks as B
+
+    bench = B.get_benchmark(bench_name)
+    if objective is None:
+        def objective(x):
+            return bench.fn(torch.as_tensor(x)).numpy()
+
+    opt = Optimizer(bench.lb, bench.ub, method=method, seed=0, **kwargs)
+    _require(opt.device.type == "cuda", f"{label}: the Optimizer is not on the GPU")
+    res, wall, launches = _counted(torch, CK, lambda: opt.optimize(lambda x: np.asarray(objective(x), np.float32)))
+    n_init = kwargs["n_init"] * kwargs.get("m", 1) if method == "turbom" else kwargs["n_init"]
+    init_best = float(res.y_hist[:n_init].min())
+    tells = -(-kwargs["max_evals"] // kwargs["batch_size"])
+    kernels = ("kernel_matrix",) if method == "bo" and kwargs.get("acq") != "ts" else ("kernel_matrix", "ts_cov")
+    _check_run(label, res, launches, init_best, tells, kernels)
+    _emit({"phase": 7, "ask_tell": label, "method": method, "benchmark": bench_name, "evals": len(res.y_hist),
+           "wall_s": wall, "best_y": res.best_y, "regret": res.best_y - bench.optimum, "init_design_best": init_best,
+           "launches": launches, "tells": tells, "card": smi})
     return launches
 
 
@@ -430,16 +526,37 @@ def main() -> int:
     phase1_build(CK)
     max_err, ts_err = phase2_parity(torch, CK)
     km_line, ts_line = phase3_timings(smi)
-    launches4 = phase_config(torch, CK, smi, 4, "turbo1_ackley10")
-    launches5 = phase_config(torch, CK, smi, 5, "turbom5_rover60")
+    from turbojax_torch import registry as R
+
+    paths = {
+        "turbo1_ackley10": phase_config(torch, CK, smi, 4, "turbo1_ackley10"),
+        "turbom5_rover60": phase_config(torch, CK, smi, 5, "turbom5_rover60"),
+        "branin_ei": phase_config(torch, CK, smi, 6, "branin_ei"),
+        "branin_ei_refactor": phase_config(torch, CK, smi, 6, "branin_ei", chol_mode="refactor"),
+        "hartmann6_lbfgs": phase_config(torch, CK, smi, 6, "hartmann6_lbfgs"),
+        "ts_q10": phase7_acquisition_only(torch, CK, smi),
+    }
+    c4 = R.get_config("turbo1_ackley10")
+    paths["ask_tell_turbo1_ackley10"] = phase7_ask_tell(
+        torch, CK, smi, "ask_tell_turbo1_ackley10", "turbo1", "ackley10", _ackley_numpy, n_init=c4.turbo.n_init,
+        max_evals=c4.turbo.max_evals, batch_size=c4.turbo.batch_size, n_candidates=c4.turbo.n_candidates,
+        gp_config=c4.gp)
+    paths["ask_tell_bo_branin"] = phase7_ask_tell(
+        torch, CK, smi, "ask_tell_bo_branin", "bo", "branin", n_init=10, max_evals=30, batch_size=2, acq="ei",
+        n_candidates=2000)
+    c5 = R.get_config("turbom5_rover60")
+    paths["ask_tell_turbom_rover60"] = phase7_ask_tell(
+        torch, CK, smi, "ask_tell_turbom_rover60", "turbom", "rover60", m=2, n_init=20, max_evals=200, batch_size=10,
+        n_candidates=1000, gp_config=c5.gp)
     entries = []
     for name, source, replaces, err, line in (
         ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_line),
         ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_line),
     ):
         entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches5[name],
-            "launches_by_path": {"turbo1_ackley10": launches4[name], "turbom5_rover60": launches5[name]},
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": paths["turbom5_rover60"][name],
+            "launches_by_path": {path: counts[name] for path, counts in paths.items()},
             "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"], "device_ms": line["device_ms"],
             "shape": line["shape"],

@@ -141,13 +141,18 @@ def test_gp_state_round_trips_through_convert(rng):
 
 @pytest.mark.parametrize("optimizer", ["lbfgs", "adam", "grid+adam"])
 def test_unported_trainers_raise(optimizer, rng):
-    """The trainers off the ported paths raise; grid+adam is ported, and its
-    dual polish (``grid_polish_both``) and early-stop lane are not."""
+    """Every trainer of the JAX package is ported now: the restart trainers,
+    and grid+adam's dual polish (``grid_polish_both``) and early-stop lane,
+    run and return finite hypers; only an unknown trainer raises."""
     x, y, _ = _problem(rng)
-    configs = [GPConfig(fit_optimizer=optimizer)]
+    configs = [GPConfig(fit_optimizer=optimizer, fit_restarts=2, fit_maxiter=5)]
     if optimizer == "grid+adam":
-        configs = [GPConfig(fit_optimizer=optimizer, grid_polish_both=True),
-                   GPConfig(fit_optimizer=optimizer, fit_ftol=1e-3)]
+        configs = [GPConfig(fit_optimizer=optimizer, grid_polish_both=True, fit_maxiter_warm=3),
+                   GPConfig(fit_optimizer=optimizer, fit_ftol=1e-3, fit_maxiter_warm=3)]
+    warm = TG.default_params(D, configs[0], torch.float64)
     for config in configs:
-        with pytest.raises(NotImplementedError):
-            TG.fit_gp(torch.as_tensor(x), torch.as_tensor(y), TL.row_mask(N_MAX, N), config)
+        state = TG.fit_gp(torch.as_tensor(x), torch.as_tensor(y), TL.row_mask(N_MAX, N), config, warm_start=warm,
+                          generator=torch.Generator().manual_seed(0))
+        assert all(bool(torch.isfinite(a).all()) for a in state.raw) and bool(torch.isfinite(state.chol).all())
+    with pytest.raises(ValueError):
+        TG.fit_gp(torch.as_tensor(x), torch.as_tensor(y), TL.row_mask(N_MAX, N), GPConfig(fit_optimizer="sgd"))

@@ -1,5 +1,6 @@
-"""The port's package boundary: it imports no JAX, its configs equal the
-JAX package's (config 4 field for field), and its transforms equal
+"""The port's package boundary: it imports no JAX and nothing of the JAX
+package's tree, its configs equal the JAX package's (all six registered
+configurations field for field), and its transforms equal
 ``turbojax.transforms`` on the cases of ``tests/test_transforms.py``
 (f64, rtol 1e-12)."""
 
@@ -31,10 +32,11 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import sys, importlib\n"
         "mods = ['turbojax_torch', 'chip_smoke'] + ['turbojax_torch.' + m for m in ("
-        "'acq', 'api', 'benchmarks', 'config', 'convert', 'cuda_kernels', 'gp', 'kernels', "
+        "'acq', 'api', 'benchmarks', 'bo', 'config', 'convert', 'cuda_kernels', 'gp', 'kernel_bench', 'kernels', "
         "'linalg', 'registry', 'sampling', 'transforms', 'trust_region', 'turbo_m', 'profile_config5')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'turbojax', 'optax')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'turbojax', 'optax', 'configs', 'benchmarks', 'oracle', 'bench')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -113,3 +115,26 @@ def test_impute_failures_matches_jax(case, rng):
     ref = np.asarray(JT.impute_failures(jnp.asarray(y_new), jnp.asarray(y_buf), jnp.asarray(mask)))
     np.testing.assert_allclose(got, ref, rtol=1e-12)
     assert np.all(np.isfinite(got))
+
+
+@pytest.mark.parametrize("name", sorted(JR.CONFIGS))
+def test_registry_configs_match_the_jax_package(name):
+    knob = ("use_pallas", "use_kernel")
+    port, ref = TR.get_config(name), JR.get_config(name)
+    assert (port.name, port.benchmark, port.method, port.m) == (ref.name, ref.benchmark, ref.method, ref.m)
+    assert _fields(port.gp, knob) == _fields(ref.gp, knob)
+    assert (port.bo is None) == (ref.bo is None) and (port.turbo is None) == (ref.turbo is None)
+    if ref.bo is not None:
+        assert _fields(port.bo) == _fields(ref.bo)
+    if ref.turbo is not None:
+        assert _fields(port.turbo) == _fields(ref.turbo)
+    small_p, small_r = TR.reduced(port, max_evals=24), JR.reduced(ref, max_evals=24)
+    assert _fields(small_p.gp, knob) == _fields(small_r.gp, knob)
+    for a, b in ((small_p.bo, small_r.bo), (small_p.turbo, small_r.turbo)):
+        assert (a is None) == (b is None) and (a is None or _fields(a) == _fields(b))
+
+
+def test_registry_lists_all_six_configs():
+    assert sorted(TR.CONFIGS) == sorted(JR.CONFIGS) and len(TR.CONFIGS) == 6
+    with pytest.raises(ValueError, match="available"):
+        TR.get_config("config7")

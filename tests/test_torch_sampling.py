@@ -43,8 +43,10 @@ def test_sobol_sample_with_injected_shift(dtype):
     g = torch.Generator().manual_seed(0)
     drawn = TS.sobol_sample(dim, n, g)
     assert drawn.shape == (n, dim) and float(drawn.min()) >= 0.0 and float(drawn.max()) < 1.0
-    with pytest.raises(NotImplementedError):
-        TS.sobol_sample(dim, n, g, scramble="lms")
+    lms = TS.sobol_sample(dim, n, g, scramble="lms")  # held bit for bit in test_torch_sampling_lms.py
+    assert lms.shape == (n, dim) and float(lms.min()) >= 0.0 and float(lms.max()) < 1.0
+    with pytest.raises(ValueError):
+        TS.sobol_sample(dim, n, g, scramble="owen")
 
 
 def test_latin_hypercube_stratified_and_matches_jax_formula(rng):

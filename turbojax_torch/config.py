@@ -29,8 +29,9 @@ class GPConfig:
         (multiplied by the mean of the kernel diagonal).
       lengthscale_bounds / outputscale_bounds / noise_bounds: box constraints
         applied through a sigmoid reparameterization.
-      fit_optimizer: only "grid" is ported; the gradient trainers are later
-        work and raise ``NotImplementedError``.
+      fit_optimizer: "lbfgs" or "adam" (``fit_restarts`` restarts as one
+        batch of lanes), "grid", or "grid+adam" (the grid argmax polished by
+        Adam steps); see ``gp.fit_gp``.
       The remaining fields mirror ``turbojax.config.GPConfig`` so that a
       configuration reads the same in both packages.
     """

@@ -5,7 +5,7 @@ whose leaves are numpy arrays (callers apply ``np.asarray`` on the JAX
 side; this module imports no JAX) and return the port's NamedTuples of
 tensors on a given device, floating leaves cast to ``dtype``. The
 ``*_to_numpy`` inverses return the port's NamedTuples with numpy leaves.
-Fields the port does not carry (the JAX ``TurboCarry.key``) are dropped.
+Fields the port does not carry (the JAX carries' ``key``) are dropped.
 TuRBO-m carries (a leading TR axis on every leaf) convert with the same
 functions; their ``n`` becomes a tuple of host ints, and back an array.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from turbojax_torch.bo import BOCarry
 from turbojax_torch.gp import GPParams, GPState
 from turbojax_torch.trust_region import TRState, TurboCarry
 
@@ -85,4 +86,19 @@ def turbo_carry_to_numpy(c: TurboCarry) -> TurboCarry:
         raw=gp_params_to_numpy(c.raw),
         tr=TRState(*(_numpy(a) for a in c.tr)),
         init_stream=_numpy(c.init_stream), best_x=_numpy(c.best_x), best_y=_numpy(c.best_y),
+    )
+
+
+def bo_carry_from_numpy(c, device=None, dtype=torch.float64) -> BOCarry:
+    return BOCarry(
+        x_buf=_tensor(c.x_buf, device, dtype), y_buf=_tensor(c.y_buf, device, dtype), n=int(np.asarray(c.n)),
+        chol=_tensor(c.chol, device, dtype), raw=gp_params_from_numpy(c.raw, device, dtype),
+        y_mean=_tensor(c.y_mean, device, dtype), y_std=_tensor(c.y_std, device, dtype),
+    )
+
+
+def bo_carry_to_numpy(c: BOCarry) -> BOCarry:
+    return BOCarry(
+        x_buf=_numpy(c.x_buf), y_buf=_numpy(c.y_buf), n=c.n, chol=_numpy(c.chol), raw=gp_params_to_numpy(c.raw),
+        y_mean=_numpy(c.y_mean), y_std=_numpy(c.y_std),
     )

@@ -2,6 +2,7 @@
 
     python3 -m turbojax_torch.kernel_bench
     python3 -m turbojax_torch.kernel_bench --baseline DIR
+    python3 -m turbojax_torch.kernel_bench --chol
 
 For each shape one JSON line: the kernel's time and the plain version's by
 CUDA events over back-to-back calls (at small shapes that is the host's
@@ -12,7 +13,11 @@ that sets it, the kernel's share of it, and ``library_ms`` (events) and
 ``library_device_ms`` (profiler), one PyTorch call's time where one
 computes a comparable function (``v.mT @ v`` for ts_cov's Gram part; none
 for the kernel matrix). Then the
-``bench.py``-style iteration with the kernels and with the plain versions.
+``bench.py``-style iteration with the kernels and with the plain versions
+(its sizes are config 3's, ``ts_q10``), the appends of ``bo._append_batch``
+against one refactorization (``--chol`` prints only this table, which
+``BOConfig.resolved_chol_mode`` follows), and one L-BFGS fit at config 2's
+final size with its loss evaluations.
 
 ``--baseline DIR`` also times, in turns with this tree's kernels, the
 kernels of another checkout's ``turbojax_torch/cuda_kernels.py`` (for
@@ -42,20 +47,29 @@ from turbojax_torch import cuda_kernels as CK
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 
-# (label, batch, n, m, d, K(Z, Z)): config 5's grid at the 2000 and 512
-# rungs, its polish forward and cached factor, the small regions' factor,
-# a TS cross matrix; config 4's grid and factor; the bench's matrices
+# (label, batch, n, m, d, K(Z, Z), kernel function): config 5's grid at the
+# 2000 and 512 rungs, its polish forward and cached factor, the small
+# regions' factor, a TS cross matrix; config 4's grid and factor; the
+# bench's matrices; config 1's factor, posterior cross and append row
+# (60 points, d = 2, rbf) and config 2's L-BFGS lanes, cross and append row
+# (112 points, d = 6)
 KM_SHAPES = [
-    ("grid16_2000x2000_d60", 16, 2000, 2000, 60, True),
-    ("polish_2000x2000_d60", 1, 2000, 2000, 60, True),
-    ("grid64_512x512_d60", 64, 512, 512, 60, True),
-    ("regions4_512x512_d60", 4, 512, 512, 60, True),
-    ("ts_cross_2000x1000_d60", 1, 2000, 1000, 60, False),
-    ("grid15_1000x1000_d10", 15, 1000, 1000, 10, True),
-    ("kxx_1000x1000_d10", 1, 1000, 1000, 10, True),
-    ("cross_1000x1000_d10", 1, 1000, 1000, 10, False),
-    ("bench_kxx_2048x2048_d10", 1, 2048, 2048, 10, True),
-    ("bench_cross_2048x5000_d10", 1, 2048, 5000, 10, False),
+    ("grid16_2000x2000_d60", 16, 2000, 2000, 60, True, "matern52"),
+    ("polish_2000x2000_d60", 1, 2000, 2000, 60, True, "matern52"),
+    ("grid64_512x512_d60", 64, 512, 512, 60, True, "matern52"),
+    ("regions4_512x512_d60", 4, 512, 512, 60, True, "matern52"),
+    ("ts_cross_2000x1000_d60", 1, 2000, 1000, 60, False, "matern52"),
+    ("grid15_1000x1000_d10", 15, 1000, 1000, 10, True, "matern52"),
+    ("kxx_1000x1000_d10", 1, 1000, 1000, 10, True, "matern52"),
+    ("cross_1000x1000_d10", 1, 1000, 1000, 10, False, "matern52"),
+    ("bench_kxx_2048x2048_d10", 1, 2048, 2048, 10, True, "matern52"),
+    ("bench_cross_2048x5000_d10", 1, 2048, 5000, 10, False, "matern52"),
+    ("bo1_kxx_60x60_d2_rbf", 1, 60, 60, 2, True, "rbf"),
+    ("bo1_cross_60x2000_d2_rbf", 1, 60, 2000, 2, False, "rbf"),
+    ("bo1_append_1x60_d2_rbf", 1, 1, 60, 2, False, "rbf"),
+    ("bo2_lanes4_112x112_d6", 4, 112, 112, 6, True, "matern52"),
+    ("bo2_cross_112x2000_d6", 1, 112, 2000, 6, False, "matern52"),
+    ("bo2_append_1x112_d6", 1, 1, 112, 6, False, "matern52"),
 ]
 # (label, batch, m, n, d): the single chunks the paths launch
 TS_SHAPES = [
@@ -177,14 +191,14 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
     gen = torch.Generator(device="cuda").manual_seed(2)
     lines = {}
     mods = {"kernel": CK, **({"baseline": baseline} if baseline is not None else {})}
-    for label, batch, n, m, d, same in KM_SHAPES:
+    for label, batch, n, m, d, same, kfn in KM_SHAPES:
         z1, z2, s, nz = _inputs_km(gen, batch, n, m, d, same)
-        fns = {"plain": lambda: CK.kernel_matrix_reference(z1, z2, s, nz, "matern52", same)}
-        fns.update({k: (lambda mod=mod: mod.kernel_matrix(z1, z2, s, nz, "matern52", same)) for k, mod in mods.items()})
+        fns = {"plain": lambda: CK.kernel_matrix_reference(z1, z2, s, nz, kfn, same)}
+        fns.update({k: (lambda mod=mod: mod.kernel_matrix(z1, z2, s, nz, kfn, same)) for k, mod in mods.items()})
         times = in_turns(fns, reps)
         dev = device_ms(fns["kernel"], reps)
         base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
-        dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same}
+        dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same, "kernel_fn": kfn}
         lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(batch, n, m, d, same), times, dev,
                              base_dev, smi)
         emit(lines[label])
@@ -205,41 +219,45 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
     return lines
 
 
-BENCH_N, BENCH_N_MAX, BENCH_D, BENCH_CAND, BENCH_Q, BENCH_CHUNK = 2000, 2048, 10, 5000, 10, 1000
+BENCH_N, BENCH_N_MAX = 2000, 2048  # bench.py's training set; the other sizes are config 3's
 
 
 def bench_iteration(check: Callable[[bool, str], None]) -> Dict[str, float]:
-    """bench.py's iteration at N = 2000 in a 2048 buffer: make_gp_state,
-    gp_posterior over 5000 candidates, EI, thompson_select q = 10 in chunks
-    of 1000, with the kernels (use_kernel=None) and with the plain versions
-    (use_kernel=False); host clock around synchronized iterations, plain,
-    kernel, kernel, plain, five iterations each. ``check(ok, what)`` is
-    given the finiteness of each iteration's output."""
+    """bench.py's iteration at N = 2000 in a 2048 buffer, at the sizes of
+    config 3 (``ts_q10``: its benchmark's dimension, 5000 candidates, q = 10,
+    Thompson chunks of 1000): make_gp_state, gp_posterior over the
+    candidates, EI, thompson_select, with the kernels (use_kernel=None) and
+    with the plain versions (use_kernel=False); host clock around
+    synchronized iterations, plain, kernel, kernel, plain, five iterations
+    each. ``check(ok, what)`` is given the finiteness of each iteration's
+    output."""
     from turbojax_torch import acq as A
+    from turbojax_torch import benchmarks as B
     from turbojax_torch import gp as G
     from turbojax_torch import linalg as L
-    from turbojax_torch.config import GPConfig
+    from turbojax_torch import registry as R
 
+    cfg = R.get_config("ts_q10")
+    dim, n_cand, q, chunk = B.get_benchmark(cfg.benchmark).dim, cfg.bo.n_candidates, cfg.bo.batch_size, cfg.bo.ts_chunk
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev, f32 = "cuda", torch.float32
-    x = torch.rand((BENCH_N, BENCH_D), generator=gen, device=dev, dtype=f32)
+    x = torch.rand((BENCH_N, dim), generator=gen, device=dev, dtype=f32)
     y = torch.sin(3 * x[:, 0]) + 0.1 * torch.randn(BENCH_N, generator=gen, device=dev, dtype=f32)
-    cands = torch.rand((BENCH_CAND, BENCH_D), generator=gen, device=dev, dtype=f32)
-    x_buf = torch.zeros((BENCH_N_MAX, BENCH_D), device=dev, dtype=f32)
+    cands = torch.rand((n_cand, dim), generator=gen, device=dev, dtype=f32)
+    x_buf = torch.zeros((BENCH_N_MAX, dim), device=dev, dtype=f32)
     x_buf[:BENCH_N] = x
     y_buf = torch.zeros((BENCH_N_MAX,), device=dev, dtype=f32)
     y_buf[:BENCH_N] = y
     mask = L.row_mask(BENCH_N_MAX, BENCH_N, dev)
-    base = GPConfig(kernel="matern52")
-    raw = G.default_params(BENCH_D, base, f32, dev)
-    configs = {"kernel": base, "plain": dataclasses.replace(base, use_kernel=False)}
+    raw = G.default_params(dim, cfg.gp, f32, dev)
+    configs = {"kernel": cfg.gp, "plain": dataclasses.replace(cfg.gp, use_kernel=False)}
 
     def iteration(config):
         state = G.make_gp_state(x_buf, y_buf, mask, raw, config)
         mu, var = G.gp_posterior(state, cands, config)
         best = torch.where(mask, y_buf, torch.inf).min()
         ei = A.expected_improvement(mu, var, best)
-        xs, vals = A.thompson_select(state, cands, BENCH_Q, config, BENCH_CHUNK, gen)
+        xs, vals = A.thompson_select(state, cands, q, config, chunk, gen)
         check(bool(torch.isfinite(ei).all() & torch.isfinite(xs).all()), "bench iteration: non-finite output")
 
     def timed(label, reps=5):
@@ -254,6 +272,84 @@ def bench_iteration(check: Callable[[bool, str], None]) -> Dict[str, float]:
         iteration(configs[label])  # warm up both
     p1, k1, k2, p2 = timed("plain"), timed("kernel"), timed("kernel"), timed("plain")
     return {"kernel": 0.5 * (k1 + k2), "plain": 0.5 * (p1 + p2)}
+
+
+CHOL_SIZES, CHOL_BATCHES, CHOL_DIM = (64, 512, 2048), (1, 2, 4, 8, 16), 10
+
+
+def append_against_refactor(smi: str, reps: int = 20) -> List[Dict[str, object]]:
+    """``bo._append_batch`` in both modes at N = 64, 512 and 2048 active
+    points (d = 10, float32, Matérn-5/2, a buffer of N + 16 rows): q
+    ``chol_append`` rows against one masked refactorization, ms per call by
+    CUDA events over back-to-back calls, in turns. Both write the same
+    buffers and build their kernel entries through the kernel wrapper. One
+    line per (N, q), the factors' largest difference beside the times."""
+    from turbojax_torch import bo as BO
+    from turbojax_torch import gp as G
+    from turbojax_torch import linalg as L
+    from turbojax_torch.config import GPConfig
+
+    config = GPConfig(kernel="matern52")
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(5)
+    raw = G.default_params(CHOL_DIM, config, torch.float32, device)
+    lines = []
+    for n in CHOL_SIZES:
+        n_max = n + max(CHOL_BATCHES)
+        x_buf = torch.zeros((n_max, CHOL_DIM), device=device)
+        x_buf[:n] = torch.rand((n, CHOL_DIM), generator=gen, device=device)
+        y_buf = torch.zeros((n_max,), device=device)
+        y_buf[:n] = torch.sin(3 * x_buf[:n, 0])
+        state = G.make_gp_state(x_buf, y_buf, L.row_mask(n_max, n, device), raw, config)
+        carry = BO.BOCarry(x_buf=x_buf, y_buf=y_buf, n=n, chol=state.chol, raw=raw, y_mean=state.y_mean,
+                           y_std=state.y_std)
+        for q in CHOL_BATCHES:
+            x_new = torch.rand((q, CHOL_DIM), generator=gen, device=device)
+            y_new = torch.sin(3 * x_new[:, 0])
+            fns = {mode: (lambda mode=mode: BO._append_batch(carry, x_new, y_new, config, mode))
+                   for mode in ("incremental", "refactor")}
+            diff = float((fns["incremental"]().chol - fns["refactor"]().chol).abs().max())
+            times = in_turns(fns, reps)
+            lines.append({"n": n, "q": q, "d": CHOL_DIM, "append_ms": times["incremental"],
+                          "refactor_ms": times["refactor"], "max_abs_diff": diff, "card": smi})
+    return lines
+
+
+def lbfgs_fit(smi: str) -> Dict[str, object]:
+    """One L-BFGS fit at config 2's final size (``hartmann6_lbfgs``: 112
+    points, d = 6, 4 restarts as one batch of lanes, float32): its batched
+    loss evaluations (each one kernel-matrix launch and one batched Cholesky
+    forward and backward), the iterations each lane took, the wall of a
+    second, warm fit, and the device's busy time during a third."""
+    from turbojax_torch import benchmarks as B
+    from turbojax_torch import gp as G
+    from turbojax_torch import linalg as L
+    from turbojax_torch import registry as R
+
+    cfg = R.get_config("hartmann6_lbfgs")
+    bench = B.get_benchmark(cfg.benchmark)
+    n = cfg.bo.max_evals
+    device = "cuda"
+    gen = torch.Generator(device=device).manual_seed(6)
+    x = torch.rand((n, bench.dim), generator=gen, device=device)
+    y = bench.fn(x)
+    mask = L.row_mask(n, n, device)
+    uniforms = torch.rand((cfg.gp.fit_restarts - 1, bench.dim + 2), generator=gen, device=device)
+    walls, stats = [], {}
+    for _ in range(2):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = G.fit_gp(x, y, mask, cfg.gp, restart_uniforms=uniforms, stats=stats)
+        finite = bool(torch.isfinite(state.chol).all())
+        walls.append(time.perf_counter() - t0)
+    if not finite:
+        raise RuntimeError("the L-BFGS fit returned a non-finite factor")
+    busy_ms = device_ms(lambda: G.fit_gp(x, y, mask, cfg.gp, restart_uniforms=uniforms), 1)
+    return {"fit": "lbfgs", "lanes": cfg.gp.fit_restarts, "n": n, "d": bench.dim, "loss_evals": stats["loss_evals"],
+            "iterations_per_lane": stats["steps"].tolist(), "wall_s_cold": walls[0], "wall_s": walls[1],
+            "ms_per_loss_eval": 1e3 * walls[1] / stats["loss_evals"], "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / (1e3 * walls[1]), "card": smi}
 
 
 def load_baseline(tree: str):
@@ -275,15 +371,20 @@ def _check(ok: bool, what: str) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--baseline", default=None, help="a checkout whose kernels to time in turns with these")
+    ap.add_argument("--chol", action="store_true", help="only the append-against-refactor table")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_bench measures the card: torch.cuda.is_available() is False")
     smi = card()
     CK.build()
-    baseline = load_baseline(args.baseline) if args.baseline else None
-    measure_kernels(smi, baseline, args.reps, emit=lambda line: print(json.dumps(line), flush=True))
-    print(json.dumps({"bench_iteration_ms": bench_iteration(_check), "card": smi}), flush=True)
+    if not args.chol:
+        baseline = load_baseline(args.baseline) if args.baseline else None
+        measure_kernels(smi, baseline, args.reps, emit=lambda line: print(json.dumps(line), flush=True))
+        print(json.dumps({"bench_iteration_ms": bench_iteration(_check), "card": smi}), flush=True)
+        print(json.dumps(lbfgs_fit(smi)), flush=True)
+    for line in append_against_refactor(smi, args.reps):
+        print(json.dumps(line), flush=True)
     return 0
 
 

@@ -1,5 +1,5 @@
 """Masked, statically shaped linear algebra for GP inference (port of
-``turbojax.linalg``, main-path part).
+``turbojax.linalg``).
 
 A growing training set is carried as an ``(N_max, ·)`` buffer plus an
 active count. Masked kernel matrices are identity-padded, so the Cholesky
@@ -112,3 +112,60 @@ def masked_logdet_from_chol(l_mat: Tensor, mask: Tensor) -> Tensor:
     diag = l_mat.diagonal(dim1=-2, dim2=-1)
     safe = torch.where(mask, diag, torch.ones_like(diag))
     return 2.0 * torch.log(safe).sum(dim=-1)
+
+
+# Incremental Cholesky:
+#
+#   L_{n+1} = [[L, 0], [bᵀ, p]],  b = L⁻¹ k(X, x_new),  p = sqrt(k_nn + σ² − bᵀb)
+#
+# O(n²) per append against O(n³) for a refactorization. The active count is a
+# host int here, so the solve runs on the active n × n view of the buffer.
+
+
+def _append_row_(l_buf: Tensor, n: int, k_vec: Tensor, k_nn: Tensor, floor: float) -> None:
+    """Write row ``n`` of the factor in place: [b, pivot, 0, ...]."""
+    b = solve_lower(l_buf[:n, :n], k_vec[:n]) if n else k_vec[:0]
+    # an elementwise product and a sum: the pivot is a cancellation, and a
+    # dot product could take a reduced-precision path
+    pivot = torch.sqrt(torch.clamp_min(k_nn - (b * b).sum(), floor))
+    l_buf[n].zero_()
+    l_buf[n, :n] = b
+    l_buf[n, n] = pivot
+
+
+def chol_append(l_buf: Tensor, n: int, k_vec: Tensor, k_nn: Tensor, floor: float = 1e-10) -> Tensor:
+    """Append one observation to an identity-padded Cholesky buffer.
+
+    ``l_buf``: (N_max, N_max) lower factor, the identity outside the active
+    n × n block; ``n``: the active size (a host int), row ``n`` is written;
+    ``k_vec``: (N_max,) covariances k(X_buf, x_new), entries at index ≥ n are
+    ignored; ``k_nn``: k(x_new, x_new) + σ²; ``floor``: the clamp under the
+    new pivot's square root. Returns a new (N_max, N_max) factor with active
+    size n + 1; ``l_buf`` is left as it was."""
+    if not 0 <= n < l_buf.shape[-1]:
+        raise ValueError(f"cannot append row {n} to a factor of capacity {l_buf.shape[-1]}")
+    l_new = l_buf.clone()
+    _append_row_(l_new, n, k_vec, k_nn, floor)
+    return l_new
+
+
+def chol_append_batch(
+    l_buf: Tensor, n: int, k_block: Tensor, k_diag_block: Tensor, q: int, floor: float = 1e-10
+) -> Tensor:
+    """Append ``q`` observations one after another. ``k_block``: (q, N_max)
+    covariances of each new point against the buffer with the new points
+    already written (column n + j holds k(x_i, x_j) for the j-th new point);
+    ``k_diag_block``: (q,) k(x_i, x_i) + σ². Returns a new factor with
+    active size n + q."""
+    if not 0 <= n <= l_buf.shape[-1] - q:
+        raise ValueError(f"cannot append rows {n}..{n + q - 1} to a factor of capacity {l_buf.shape[-1]}")
+    l_new = l_buf.clone()
+    for i in range(q):
+        _append_row_(l_new, n + i, k_block[i], k_diag_block[i], floor)
+    return l_new
+
+
+def dense_chol_solve(k_mat: Tensor, y: Tensor, jitter: float = 0.0) -> Tuple[Tensor, Tensor]:
+    """(L, (L Lᵀ)⁻¹ y) for a dense, unmasked matrix; a failed factor is NaN."""
+    l_mat = cholesky_jittered(k_mat, jitter) if jitter else cholesky_nan(k_mat)[0]
+    return l_mat, cho_solve(l_mat, y)

@@ -10,7 +10,7 @@ operator coverage on CUDA.
 
 Every stochastic function takes an explicit ``torch.Generator`` and also
 accepts its draws as optional arguments, so that tests can hand in the
-draws the JAX twin made. The ``"lms"`` scramble is later work.
+draws the JAX twin made (the LMS rows and the shift as integers).
 """
 
 from __future__ import annotations
@@ -34,9 +34,11 @@ def _direction_numbers(dim: int) -> np.ndarray:
     return np.asarray(qmc.Sobol(d=dim, scramble=False)._sv, dtype=np.int64)
 
 
-def _gray_sobol(dim: int, idx: Tensor) -> Tensor:
-    """(n, dim) int64 Sobol integers of the points ``idx`` (int64, (n,))."""
-    sv = torch.as_tensor(_direction_numbers(dim), device=idx.device)
+def _gray_sobol(dim: int, idx: Tensor, sv: Optional[Tensor] = None) -> Tensor:
+    """(n, dim) int64 Sobol integers of the points ``idx`` (int64, (n,)),
+    from the Joe-Kuo direction numbers or from ``sv`` ((dim, 30) int64)."""
+    if sv is None:
+        sv = torch.as_tensor(_direction_numbers(dim), device=idx.device)
     gray = idx ^ (idx >> 1)
     acc = torch.zeros((idx.shape[0], dim), dtype=torch.int64, device=idx.device)
     for b in range(_SOBOL_BITS):
@@ -52,19 +54,68 @@ def sobol_raw(dim: int, n: int, start_index: int = 0, dtype=torch.float32, devic
     return _gray_sobol(dim, idx).to(dtype) / (2.0**_SOBOL_BITS)
 
 
+def _parity(x: Tensor) -> Tensor:
+    """Bitwise parity (popcount mod 2) of non-negative int64 values below 2**32."""
+    for s in (16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return x & 1
+
+
+def lms_scramble_sv(sv: Tensor, rows: Tensor) -> Tensor:
+    """Apply a linear matrix scramble (Matousek) to Sobol direction numbers.
+
+    ``sv``: (dim, 30) int64 direction numbers (30-bit, the top bit the most
+    significant fraction bit). ``rows``: (dim, 30) int64 GF(2) matrix rows in
+    integer-bit encoding: row ``i`` (i = 0 acts on the most significant
+    output bit) has its forced diagonal at bit 29 − i, random bits only
+    above it, zeros below. Bit 29 − i of each scrambled direction number is
+    ``parity(rows[d, i] & v)``: scipy's ``Sobol(scramble=True)``
+    ``_cscramble`` convention, bit for bit. Scrambling the 30 direction
+    numbers once equals scrambling every point."""
+    par = _parity(rows[:, :, None] & sv[:, None, :])  # (dim, i, b)
+    weights = 1 << (_SOBOL_BITS - 1 - torch.arange(_SOBOL_BITS, dtype=torch.int64, device=sv.device))
+    return (par * weights[None, :, None]).sum(dim=1)
+
+
+def lms_random_rows(
+    dim: int, generator: Optional[torch.Generator] = None, device=None, bits: Optional[Tensor] = None
+) -> Tensor:
+    """Random LMS row masks for ``lms_scramble_sv``: per dimension an
+    independent lower-triangular (most significant bit first) random GF(2)
+    matrix with unit diagonal. ``bits`` ((dim, 30) non-negative integers)
+    replaces the random draw; only their bits above each row's diagonal,
+    within the low 30, are used."""
+    if bits is None:
+        bits = torch.randint(0, 2**_SOBOL_BITS, (dim, _SOBOL_BITS), generator=generator, device=device)
+    bits = bits.to(device=device, dtype=torch.int64)
+    i = torch.arange(_SOBOL_BITS, dtype=torch.int64, device=bits.device)
+    diag = 1 << (_SOBOL_BITS - 1 - i)
+    # strictly above the diagonal: positions ≥ 30 − i (none for i = 0)
+    high = ((1 << _SOBOL_BITS) - 1) & ~((1 << (_SOBOL_BITS - i)) - 1)
+    return (bits & high[None, :]) | diag[None, :]
+
+
 def sobol_sample(
     dim: int, n: int, generator: Optional[torch.Generator] = None, dtype=torch.float32,
     device=None, scramble: str = "shift", shift: Optional[Tensor] = None,
+    lms_bits: Optional[Tensor] = None,
 ) -> Tensor:
-    """Digitally shifted Sobol points (RQMC), a fresh shift per call.
-    ``shift`` ((dim,) integers below 2**30) replaces the random draw."""
+    """Randomized Sobol points (RQMC), a fresh randomization per call.
+    ``scramble="shift"``: a digital shift only (XOR with per-dimension random
+    30-bit offsets). ``"lms"``: a Matousek linear matrix scramble of the
+    direction numbers, then the shift: the randomization class of
+    ``scipy.stats.qmc.Sobol(scramble=True)``. ``shift`` ((dim,) integers
+    below 2**30) and ``lms_bits`` (see ``lms_random_rows``) replace the
+    random draws."""
+    sv = None
     if scramble == "lms":
-        raise NotImplementedError("scramble='lms' is not ported yet; use 'shift'")
-    if scramble != "shift":
+        sv = torch.as_tensor(_direction_numbers(dim), device=device)
+        sv = lms_scramble_sv(sv, lms_random_rows(dim, generator, sv.device, lms_bits))
+    elif scramble != "shift":
         raise ValueError(f"unknown scramble {scramble!r}; use 'shift' or 'lms'")
     if shift is None:
         shift = torch.randint(0, 2**_SOBOL_BITS, (dim,), generator=generator, device=device)
-    acc = _gray_sobol(dim, torch.arange(n, dtype=torch.int64, device=device))
+    acc = _gray_sobol(dim, torch.arange(n, dtype=torch.int64, device=device), sv)
     acc = acc ^ shift.to(device=acc.device, dtype=torch.int64)[None, :]
     return acc.to(dtype) / (2.0**_SOBOL_BITS)
 

@@ -37,9 +37,9 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class TurboConfig:
     """TuRBO loop knobs (same fields and defaults as the JAX package's).
-    Only the values of config 4's path are ported: ``ts_sampler="exact"``,
-    ``ts_dtype=None``, ``sobol_scramble="shift"`` and ``local_frac=0``;
-    others raise ``NotImplementedError`` when the loop reaches them."""
+    Not ported yet: ``ts_sampler`` other than ``"exact"``, ``ts_dtype`` and
+    ``local_frac > 0``; they raise ``NotImplementedError`` when the loop
+    reaches them."""
 
     n_init: int = 20
     max_evals: int = 200
@@ -142,11 +142,12 @@ def make_turbo_carry(dim: int, n_loc: int, cfg: TurboConfig, config: GPConfig,
     )
 
 
-def _fit_or_reuse(c: TurboCarry, mask: Tensor, cfg: TurboConfig, config: GPConfig) -> G.GPState:
+def _fit_or_reuse(c: TurboCarry, mask: Tensor, cfg: TurboConfig, config: GPConfig,
+                  generator: Optional[torch.Generator] = None) -> G.GPState:
     """Refit every ``fit_every``-th batch of accepted data; otherwise reuse
     the carried hypers and only refactorize over the grown history."""
     if cfg.fit_every <= 1 or ((c.n - cfg.n_init) // cfg.batch_size) % cfg.fit_every == 0:
-        return G.fit_gp(c.x_buf, c.y_buf, mask, config, warm_start=c.raw)
+        return G.fit_gp(c.x_buf, c.y_buf, mask, config, warm_start=c.raw, generator=generator)
     return G.make_gp_state(c.x_buf, c.y_buf, mask, c.raw, config)
 
 
@@ -176,7 +177,7 @@ def turbo_propose(
         start = min(carry.n, carry.init_stream.shape[0] - q)
         return carry, carry.init_stream[start:start + q], False
     mask = L.row_mask(carry.x_buf.shape[0], carry.n, carry.x_buf.device)
-    state = _fit_or_reuse(carry, mask, cfg, config)
+    state = _fit_or_reuse(carry, mask, cfg, config, generator)
     carry = carry._replace(raw=state.raw)
     if cands is None:
         best_idx = torch.argmin(torch.where(mask, carry.y_buf, torch.inf))

@@ -92,6 +92,25 @@ def _rung(need: int, cap0: int, n_final: int) -> int:
     return cap
 
 
+def final_capacity(cfg: TurboConfig) -> int:
+    """The most points one region can hold at the end of a run."""
+    return cfg.n_init + cfg.n_iters * min(cfg.batch_size, cfg.alloc_cap or cfg.batch_size)
+
+
+def fit_capacities(ns: Sequence[int], cfg: TurboConfig) -> Tuple[int, Optional[int]]:
+    """(cap, cap_b) for the next fits over buffers of ``final_capacity(cfg)`` rows:
+    ``cap`` the rung (powers of 2 from 512, capped at the final size) that
+    holds the largest region, ``cap_b`` the ``_split_cap`` rung of the other
+    regions, or None when splitting cannot pay."""
+    q = cfg.batch_size
+    final = final_capacity(cfg)
+    cap0 = _CAPB_MIN
+    while cap0 < max(2 * q, cfg.n_init + q):
+        cap0 *= 2
+    cap = _rung(max(ns), min(cap0, final), final)
+    return cap, _split_cap(ns, cap, 0, min(q, cfg.alloc_cap or q))
+
+
 def _init_values(init_stream: Tensor, n: int, q: int, n_cand: int, forcing: Tensor) -> Tuple[Tensor, Tensor]:
     """Init-phase region: its LHS stream tiled to ``n_cand`` candidates, and
     (q, n_cand) values that are +inf except a huge negative value at stream
@@ -191,7 +210,7 @@ def turbom_propose_batch(
             mask = torch.arange(c, device=device)[None, :] < counts[:, None]
             warm = G.GPParams(*(a.index_select(0, idx) for a in carries.raw))
             state = G.fit_gp(carries.x_buf.index_select(0, idx)[:, :c], carries.y_buf.index_select(0, idx)[:, :c],
-                             mask, config, warm_start=warm)
+                             mask, config, warm_start=warm, generator=generator)
         raw = G.GPParams(*(a.index_copy(0, idx, b) for a, b in zip(raw, state.raw)))
         for j, i in enumerate(members):
             states[i] = G.state_lane(state, j)
@@ -260,31 +279,22 @@ def run_turbom(
 ) -> Tuple[TurboCarry, Tensor]:
     """TuRBO-m as a host loop of ``cfg.n_iters`` steps on the device of
     ``generator``. ``fn`` maps a (q, d) tensor in the box to a (q,) tensor.
-    Buffers are allocated once at the final size; each step fits on
-    ``[:cap]`` views, ``cap`` the rung (powers of 2 from 512, capped at the
-    final size) that holds the largest region, and the other regions on the
-    ``_split_cap`` rung of the second-largest count when that pays.
+    Buffers are allocated once at the final size; each step fits on the
+    views ``fit_capacities`` gives.
     ``on_iteration(iteration, best)`` is called after each step with the
     incumbent as a device tensor (reading it is the caller's sync).
     Returns (carries, incumbent trace (n_iters,))."""
     device = generator.device
     dim = len(lb)
-    q = cfg.batch_size
-    step_max = min(q, cfg.alloc_cap or q)
-    n_final = cfg.n_init + cfg.n_iters * step_max
     _check_n_cand(cfg, cfg.n_candidates or S.n_candidates(dim))
-    fail_tol = cfg.tr.resolved_fail_tol(dim, q)
+    fail_tol = cfg.tr.resolved_fail_tol(dim, cfg.batch_size)
     lb_t = torch.tensor(lb, dtype=dtype, device=device)
     ub_t = torch.tensor(ub, dtype=dtype, device=device)
-    cap0 = _CAPB_MIN
-    while cap0 < max(2 * q, cfg.n_init + q):
-        cap0 *= 2
-    cap0 = min(cap0, n_final)
-    carries = stack_carries([make_turbo_carry(dim, n_final, cfg, config, generator, dtype, device) for _ in range(m)])
+    carries = stack_carries([make_turbo_carry(dim, final_capacity(cfg), cfg, config, generator, dtype, device)
+                             for _ in range(m)])
     trace: List[Tensor] = []
     for it in range(cfg.n_iters):
-        cap = _rung(max(carries.n), cap0, n_final)
-        cap_b = _split_cap(carries.n, cap, 0, step_max)
+        cap, cap_b = fit_capacities(carries.n, cfg)
         carries, x_sel, tr_idx, _ = turbom_propose_batch(carries, cfg, config, generator, cap, cap_b)
         y_sel = fn(T.from_unit_cube(x_sel, lb_t, ub_t)).to(dtype)
         carries, best = turbom_absorb_batch(carries, x_sel, y_sel, tr_idx, cfg, fail_tol, generator)
