@@ -59,19 +59,36 @@ non-zero and the final line is not printed:
    ask/tell ``Optimizer`` with the objective evaluated on the host in
    numpy: TuRBO-1 at config 4's sizes (Ackley-10D, 1000 evaluations,
    q = 10), a short plain-BO run (Branin, EI, L-BFGS refits) and a short
-   TuRBO-m run (m = 2, rover-60D).
+   TuRBO-m run (m = 2, rover-60D);
+8. the loop options, each through ``profile_config5.run_config`` with the
+   configuration's ``TurboConfig`` changed: (a) config 4 with
+   ``ts_dtype="float64"`` (the f64 Thompson lane: the f64 instantiations of
+   both kernels must be launched); (b) config 4 with ``ts_sampler="rff"``
+   and with ``"pathwise"``; (c) config 5 with ``"pathwise"`` at full width
+   (m = 5, d = 60, 5000 candidates per region), 1000 evaluations; (d)
+   config 5 with ``local_frac=0.3`` and with ``fit_every=2``, 600
+   evaluations each; (e) config 4 through ``run_turbo1`` killed from
+   ``on_iteration`` at iteration 40 and resumed from its checkpoint (under
+   ``build/chip_smoke/``): the incumbent trace must equal an uninterrupted
+   run's bit for bit; and an ask/tell ``Optimizer`` at config 4's sizes
+   saved after five tells and restored into a fresh one must ask what the
+   saved one asks next.
 
-In phases 4 to 7 the launch counters are set to 0 just before each run and
+In phases 4 to 8 the launch counters are set to 0 just before each run and
 read just after; a run fails unless the kernels of its path were launched
-(the kernel matrix on every path; the TS covariance wherever Thompson
-sampling runs: configs 3, 4 and 5 and the TuRBO ask/tell runs) and the
+(the kernel matrix on every path; the TS covariance wherever the exact
+Thompson sampler runs: configs 3, 4 and 5 and the TuRBO ask/tell runs, not
+the RFF and pathwise samplers, which build no candidate covariance) and the
 result is finite, its incumbent trace non-increasing, and its best value
-better than the initial design's. Then one ``{"kernels": [...]}`` line
+better than the initial design's. Phase 3 also times both kernels at the f64
+lane's shapes and the pathwise cross (5000 × 2000 at d = 60, 1000 × 1000 at
+d = 10), which phase 2 checks too. Then one ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": ...}``.
 """
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -180,6 +197,11 @@ def _cases(torch, gen):
     x2 = c0 + 0.5**7 * (unit(1000, 10) - 0.5)
     z1, z2 = centered(x1 / 0.01, x2 / 0.01)
     out.append(("clustered_1000x1000_d10", z1, z2, one, nz))
+    # the pathwise sampler's cross k(x*, X): 5000 candidates against a 2000-row buffer (last, so that the
+    # cases above keep their inputs)
+    xb = torch.cat([unit(1950, 60), torch.zeros(50, 60, dtype=torch.float64, device=dev)])
+    z1, z2 = centered(unit(5000, 60) / ell60, xb / ell60)
+    out.append(("pathwise_cross_5000x2000_d60", z1, z2, one, nz))
     return out
 
 
@@ -408,20 +430,21 @@ def phase3_timings(smi):
         _require(line["max_abs_diff"] <= 1e-4, f"append and refactorization disagree: {line}")
         _emit({"phase": 3, "chol": "append_against_refactor", **line})
     _emit({"phase": 3, **KB.lbfgs_fit(smi)})
-    return lines[KB.KM_HEADLINE], lines[KB.TS_HEADLINE]
+    return lines[KB.KM_HEADLINE], lines[KB.TS_HEADLINE], lines[KB.KM_F64_HEADLINE], lines[KB.TS_F64_HEADLINE]
 
 
 def _counted(torch, CK, run):
-    """``run()`` with both launch counters set to 0 just before and read just
-    after; returns (its value, wall seconds, {kernel: launches})."""
+    """``run()`` with the launch counters set to 0 just before and read just
+    after; returns (its value, wall seconds, {kernel: launches}, the f64
+    instantiations' as ``<kernel>_f64``)."""
     torch.cuda.synchronize()
-    CK.LAUNCHES = 0
-    CK.TS_COV_LAUNCHES = 0
+    CK.LAUNCHES = CK.TS_COV_LAUNCHES = CK.LAUNCHES_F64 = CK.TS_COV_LAUNCHES_F64 = 0
     t0 = time.perf_counter()
     out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return out, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES}
+    return out, wall, {"kernel_matrix": CK.LAUNCHES, "ts_cov": CK.TS_COV_LAUNCHES,
+                       "kernel_matrix_f64": CK.LAUNCHES_F64, "ts_cov_f64": CK.TS_COV_LAUNCHES_F64}
 
 
 def _check_run(name, res, launches, init_best, iterations, kernels=("kernel_matrix", "ts_cov")):
@@ -439,24 +462,31 @@ def _check_run(name, res, launches, init_best, iterations, kernels=("kernel_matr
     _require(res.best_y < init_best, f"{name}: best_y {res.best_y} does not improve on the initial design {init_best}")
 
 
-def phase_config(torch, CK, smi, phase, name, chol_mode=None):
-    """One registered configuration at seed 0 through ``run_config``."""
+def phase_config(torch, CK, smi, phase, name, chol_mode=None, **options):
+    """One registered configuration at seed 0 through ``run_config``, with
+    ``options`` changing a TuRBO configuration's loop settings."""
+    import dataclasses
+
     from turbojax_torch import registry as R
     from turbojax_torch.profile_config5 import run_config
 
     cfg = R.get_config(name)
-    (res, bench), wall, launches = _counted(torch, CK, lambda: run_config(name, 0, chol_mode=chol_mode))
+    (res, bench), wall, launches = _counted(torch, CK, lambda: run_config(name, 0, chol_mode=chol_mode, **options))
     if cfg.method == "bo":
         loop, kernels = cfg.bo, ("kernel_matrix",)  # EI: no Thompson sampling, so no TS covariance
         init_best = float(res.y_hist[:loop.n_init].min())
     else:
-        loop, kernels = cfg.turbo, ("kernel_matrix", "ts_cov")
+        loop = dataclasses.replace(cfg.turbo, **options)
+        # the RFF and pathwise samplers build no candidate covariance; the f64 lane runs both kernels in f64
+        kernels = ("kernel_matrix",) if loop.ts_sampler != "exact" else ("kernel_matrix", "ts_cov")
+        if loop.ts_dtype == "float64":
+            kernels += ("kernel_matrix_f64", "ts_cov_f64")
         # the m init designs fill the first m·n_init/q batches
         init_best = float(res.incumbent_trace[cfg.m * loop.n_init // loop.batch_size - 1])
     _check_run(name, res, launches, init_best, loop.n_iters, kernels)
-    _emit({"phase": phase, "config": name, "m": cfg.m, "chol_mode": chol_mode, "evals": len(res.y_hist),
-           "wall_s": wall, "best_y": res.best_y, "regret": res.best_y - bench.optimum, "init_design_best": init_best,
-           "launches": launches, "iterations": len(res.incumbent_trace), "card": smi})
+    _emit({"phase": phase, "config": name, "options": options, "m": cfg.m, "chol_mode": chol_mode,
+           "evals": len(res.y_hist), "wall_s": wall, "best_y": res.best_y, "regret": res.best_y - bench.optimum,
+           "init_design_best": init_best, "launches": launches, "iterations": len(res.incumbent_trace), "card": smi})
     return launches
 
 
@@ -470,8 +500,8 @@ def phase7_acquisition_only(torch, CK, smi):
 
     cfg = R.get_config("ts_q10")
     (res, bench), wall, launches = _counted(torch, CK, lambda: run_config("ts_q10", 0))
-    for kernel, n in launches.items():
-        _require(n > 0, f"ts_q10 ran without launching the {kernel} kernel")
+    for kernel in ("kernel_matrix", "ts_cov"):
+        _require(launches[kernel] > 0, f"ts_q10 ran without launching the {kernel} kernel")
     xs = res.x_hist
     _require(xs.shape == (cfg.bo.batch_size, bench.dim) and bool(np.isfinite(xs).all())
              and bool(np.isfinite(res.y_hist).all()), "ts_q10: the suggestion is not q finite points")
@@ -517,6 +547,84 @@ def phase7_ask_tell(torch, CK, smi, label, method, bench_name, objective=None, *
     return launches
 
 
+class _Kill(Exception):
+    """Ends a run from ``on_iteration``, as a crash would."""
+
+
+def phase8_kill_and_resume(torch, CK, smi, kill_at=40, every=10):
+    """Config 4 through ``run_turbo1`` three times at seed 0: uninterrupted;
+    checkpointing every ``every`` iterations and killed from
+    ``on_iteration`` at iteration ``kill_at``; resumed from that
+    checkpoint. The resumed trace must equal the uninterrupted one bit for
+    bit. Then an ask/tell ``Optimizer`` at config 4's sizes saved after five
+    tells and restored into a fresh one must ask what the saved one asks."""
+    import numpy as np
+
+    from turbojax_torch import Optimizer
+    from turbojax_torch import benchmarks as B
+    from turbojax_torch import checkpoint as CKPT
+    from turbojax_torch import registry as R
+    from turbojax_torch import trust_region as TR
+
+    cfg = R.get_config("turbo1_ackley10")
+    bench = B.get_benchmark(cfg.benchmark)
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "turbo1_ackley10")
+    for suffix in (".npz", ".meta.json"):
+        if os.path.exists(path + suffix):
+            os.remove(path + suffix)
+
+    def run(**kw):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return TR.run_turbo1(bench.fn, bench.lb, bench.ub, cfg.turbo, cfg.gp, gen, **kw)
+
+    def kill(it, best):
+        if it == kill_at:
+            raise _Kill
+
+    (_, ref), wall_ref, launches_ref = _counted(torch, CK, run)
+    killed = False
+    try:
+        run(checkpoint_path=path, checkpoint_every=every, on_iteration=kill)
+    except _Kill:
+        killed = True
+    _require(killed and CKPT.load_meta(path)["it"] == kill_at, "kill_and_resume: no checkpoint at the kill")
+    (carry, trace), wall, launches = _counted(
+        torch, CK, lambda: run(checkpoint_path=path, checkpoint_every=every, resume=True))
+    for kernel in ("kernel_matrix", "ts_cov"):
+        _require(launches_ref[kernel] > 0 and launches[kernel] > 0, f"kill_and_resume ran without the {kernel} kernel")
+    _require(trace.shape == ref.shape and torch.equal(trace, ref),
+             f"kill_and_resume: the resumed trace differs from the uninterrupted one "
+             f"({int((trace != ref).sum())} of {ref.numel()} entries)")
+    _require(float(ref[-1]) < float(ref[cfg.turbo.n_init // cfg.turbo.batch_size - 1]),
+             "kill_and_resume: no improvement on the initial design")
+    t = cfg.turbo
+    opts = dict(method="turbo1", n_init=t.n_init, max_evals=t.max_evals, batch_size=t.batch_size,
+                n_candidates=t.n_candidates, gp_config=cfg.gp, seed=0)
+
+    def f(x):
+        return bench.fn(torch.as_tensor(x)).numpy()
+
+    def ask_tell():
+        saved = Optimizer(bench.lb, bench.ub, **opts)
+        for _ in range(5):
+            xs = saved.ask()
+            saved.tell(xs, f(xs))
+        opt_path = os.path.join(ckpt_dir, "optimizer_turbo1")
+        saved.save(opt_path)
+        restored = Optimizer(bench.lb, bench.ub, **opts).restore(opt_path)
+        return saved.ask(), restored.ask()
+
+    (want, got), _, launches_opt = _counted(torch, CK, ask_tell)
+    _require(np.array_equal(want, got), "Optimizer.restore: the next ask differs from the saved optimizer's")
+    _emit({"phase": 8, "kill_and_resume": "turbo1_ackley10", "killed_at": kill_at, "checkpoint_every": every,
+           "wall_s_uninterrupted": wall_ref, "wall_s_resumed": wall, "resumed_iterations": t.n_iters - kill_at,
+           "traces_equal": True, "best_y": float(ref[-1]), "launches_uninterrupted": launches_ref,
+           "launches_resumed": launches, "optimizer_restore_same_ask": True, "card": smi})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -525,7 +633,7 @@ def main() -> int:
 
     phase1_build(CK)
     max_err, ts_err = phase2_parity(torch, CK)
-    km_line, ts_line = phase3_timings(smi)
+    km_line, ts_line, km_f64_line, ts_f64_line = phase3_timings(smi)
     from turbojax_torch import registry as R
 
     paths = {
@@ -548,18 +656,33 @@ def main() -> int:
     paths["ask_tell_turbom_rover60"] = phase7_ask_tell(
         torch, CK, smi, "ask_tell_turbom_rover60", "turbom", "rover60", m=2, n_init=20, max_evals=200, batch_size=10,
         n_candidates=1000, gp_config=c5.gp)
+    for label, name, options in (
+        ("turbo1_ackley10_f64", "turbo1_ackley10", dict(ts_dtype="float64")),
+        ("turbo1_ackley10_rff", "turbo1_ackley10", dict(ts_sampler="rff")),
+        ("turbo1_ackley10_pathwise", "turbo1_ackley10", dict(ts_sampler="pathwise")),
+        ("turbom5_rover60_pathwise", "turbom5_rover60", dict(ts_sampler="pathwise", max_evals=1000)),
+        ("turbom5_rover60_local_frac", "turbom5_rover60", dict(local_frac=0.3, max_evals=600)),
+        ("turbom5_rover60_fit_every2", "turbom5_rover60", dict(fit_every=2, max_evals=600)),
+    ):
+        paths[label] = phase_config(torch, CK, smi, 8, name, **options)
+    paths["turbo1_ackley10_resumed"] = phase8_kill_and_resume(torch, CK, smi)
     entries = []
-    for name, source, replaces, err, line in (
-        ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_line),
-        ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_line),
+    for name, source, replaces, err, line, f64_line in (
+        ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_line,
+         km_f64_line),
+        ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_line, ts_f64_line),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths["turbom5_rover60"][name],
             "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+            "launches_f64_by_path": {path: counts[f"{name}_f64"] for path, counts in paths.items()
+                                     if counts[f"{name}_f64"]},
             "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"], "device_ms": line["device_ms"],
             "shape": line["shape"],
+            "f64": {k: f64_line[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                             "device_ms")},
         })
     _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

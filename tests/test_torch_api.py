@@ -65,7 +65,7 @@ def test_optimize_rejects_unknown_and_unported():
     with pytest.raises(NotImplementedError):
         optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", resume=True, checkpoint_path="x", device="cpu")
+        optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", budget_bytes=1 << 20, device="cpu")
 
 
 def test_ask_tell_turbo1_black_box():
@@ -190,17 +190,22 @@ def test_optimizer_optimize_loop():
 
 
 def test_optimizer_rejects_unknown_methods_and_unported_checkpoints(tmp_path):
+    """Unknown methods raise; checkpoints are ported: a fresh optimizer
+    saves and restores, a missing file raises, and a checkpoint of another
+    method is refused."""
     b = B.get_benchmark("branin")
     with pytest.raises(ValueError, match="ask/tell supports"):
         Optimizer(b.lb, b.ub, method="cma", device="cpu")
-    with pytest.raises(NotImplementedError):
-        Optimizer(b.lb, b.ub, checkpoint_path=str(tmp_path / "c"), checkpoint_every=1, device="cpu")
     opt = Optimizer(b.lb, b.ub, n_init=4, max_evals=8, batch_size=4, device="cpu")
     assert np.isnan(opt.best[0]).all() and opt.best[1] == float("inf")  # nothing told yet
-    with pytest.raises(NotImplementedError):
-        opt.save(str(tmp_path / "c"))
-    with pytest.raises(NotImplementedError):
-        opt.restore(str(tmp_path / "c"))
+    opt.save(str(tmp_path / "c"))
+    first = opt.ask()
+    np.testing.assert_array_equal(opt.restore(str(tmp_path / "c")).ask(), first)
+    with pytest.raises(FileNotFoundError):
+        opt.restore(str(tmp_path / "missing"))
+    with pytest.raises(ValueError, match="method"):
+        Optimizer(b.lb, b.ub, method="bo", n_init=4, max_evals=8, batch_size=4, device="cpu").restore(
+            str(tmp_path / "c"))
 
 
 @pytest.mark.parametrize("entry", ["Optimizer", "Turbo1", "TurboM", "optimize_bo"])

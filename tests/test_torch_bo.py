@@ -116,7 +116,8 @@ def test_suggest_picks_the_points_jax_picks(acq, y_warp):
     key = jax.random.key(7)
     cands, normals = _jax_draws(key)
     want = np.asarray(JBO._suggest(carry_j, jcfg, JBO.BOConfig(**kw), key))
-    got = TBO._suggest(carry_t, tcfg, TBO.BOConfig(**kw), cands=torch.as_tensor(cands), normals=torch.as_tensor(normals))
+    got = TBO._suggest(carry_t, tcfg, TBO.BOConfig(**kw), cands=torch.as_tensor(cands),
+                         draws=TA.Draws(normals=torch.as_tensor(normals)))
     assert got.shape == (Q, D)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
     drawn = TBO._suggest(carry_t, tcfg, TBO.BOConfig(**kw), torch.Generator().manual_seed(0))
@@ -130,8 +131,11 @@ def test_suggest_local_pool_and_unported_samplers():
     xs = TBO._suggest(carry_t, tcfg, bo, g)
     assert xs.shape == (Q, D) and float(xs.min()) >= 0.0 and float(xs.max()) <= 1.0
     for field, value in (("ts_sampler", "rff"), ("ts_sampler", "pathwise"), ("ts_dtype", "float64")):
-        with pytest.raises(NotImplementedError):
-            TBO._suggest(carry_t, tcfg, dataclasses.replace(bo, acq="ts", **{field: value}), g)
+        picked = TBO._suggest(carry_t, tcfg, dataclasses.replace(bo, acq="ts", **{field: value}), g)
+        assert picked.shape == (Q, D) and float(picked.min()) >= 0.0 and float(picked.max()) <= 1.0
+        assert len({tuple(r) for r in picked.tolist()}) == Q  # without replacement
+    with pytest.raises(ValueError):
+        TBO._suggest(carry_t, tcfg, dataclasses.replace(bo, acq="ts", ts_sampler="sobol"), g)
     with pytest.raises(ValueError):
         TBO._suggest(carry_t, tcfg, dataclasses.replace(bo, acq="pi"), g)
 
@@ -244,9 +248,7 @@ def test_reduced_config_end_to_end(name, max_evals, threshold):
     assert trace.shape == (cfg.bo.n_iters,) and [it for it, _ in seen] == list(range(cfg.bo.n_iters))
     assert np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 1e-6), "the incumbent must be monotone"
     assert float(res.best_y) < threshold and res.n == max_evals
-    with pytest.raises(NotImplementedError):
-        TBO.run_bo(b.fn, b.lb, b.ub, cfg.bo, cfg.gp, torch.Generator().manual_seed(0), checkpoint_path="x",
-                   checkpoint_every=1)
+    assert [float(v) for _, v in seen] == trace.tolist()
 
 
 def test_resolved_chol_mode():

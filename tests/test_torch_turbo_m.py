@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from configs import registry as JR
+from turbojax import acq as JA
 from turbojax import benchmarks as JB
 from turbojax import gp as JG
 from turbojax import sampling as JS
@@ -27,6 +28,7 @@ from turbojax import trust_region as JT
 from turbojax import turbo_m as JM
 from turbojax.config import GPConfig as JGPConfig
 from turbojax.config import TRConfig as JTRConfig
+from turbojax_torch import acq as TA
 from turbojax_torch import benchmarks as TB
 from turbojax_torch import convert as C
 from turbojax_torch import optimize
@@ -186,10 +188,49 @@ def _jax_carries(case):
 
 @pytest.mark.parametrize("case", ["init", "search"])
 def test_turbom_step_matches_jax(case):
+    _check_step(case)
+
+
+M_FEATURES = 32
+
+
+@pytest.mark.parametrize("case, options", [
+    ("search", dict(ts_sampler="pathwise")), ("init", dict(ts_sampler="pathwise")),
+    ("search", dict(ts_sampler="rff")), ("search", dict(fit_every=2)), ("init", dict(fit_every=2)),
+    ("search", dict(ts_dtype="float64")),
+], ids=["search-pathwise", "init-pathwise", "search-rff", "search-fit_every2", "init-fit_every2", "search-f64"])
+def test_turbom_step_with_sampler_options_matches_jax(case, options):
+    """One step with the pathwise and RFF samplers, the f64 lane and the
+    per-region refit cadence (``fit_every=2``: in the ``search`` case region
+    2 refits and regions 0 and 1 reuse their hypers; in ``init`` region 2
+    refits, region 1 reuses, region 0 is in its init phase), JAX's draws
+    injected."""
+    _check_step(case, rff_features=M_FEATURES, **options)
+
+
+def _draws_of(prop_key, cands, cfg) -> TM.Draws:
+    """The draws JAX's ``_tr_proposals_and_values`` makes for one region."""
+    k_ts = jax.random.split(prop_key, 3)[2]
+    forcing = torch.as_tensor(np.asarray(jax.random.uniform(k_ts, (Q, 1), jnp.float64)))
+    if cfg.ts_sampler == "exact":
+        chunk_keys = jax.random.split(k_ts, N_CAND // CHUNK)
+        normals = jnp.concatenate([jax.random.normal(k, (Q, CHUNK), jnp.float64) for k in chunk_keys], axis=1)
+        return TM.Draws(cands=torch.as_tensor(np.asarray(cands)), forcing=forcing,
+                        sampler=TA.Draws(normals=torch.as_tensor(np.asarray(normals))))
+    keys = jax.random.split(k_ts, 2 if cfg.ts_sampler == "rff" else 3)
+    omega, b = JA.rff_frequencies(keys[0], D, cfg.rff_features, "matern52", jnp.float64)
+    weights = jax.random.normal(keys[1], (Q, cfg.rff_features), jnp.float64)
+    eps = jax.random.normal(keys[2], (Q, N_LOC), jnp.float64) if cfg.ts_sampler == "pathwise" else None
+    sampler = TA.Draws(omega=torch.tensor(np.asarray(omega)), b=torch.tensor(np.asarray(b)),
+                       weights=torch.tensor(np.asarray(weights)), eps=None if eps is None else torch.tensor(np.asarray(eps)))
+    return TM.Draws(cands=torch.as_tensor(np.asarray(cands)), forcing=forcing, sampler=sampler)
+
+
+def _check_step(case, **options):
     gp_kw = dict(kernel="matern52", fit_optimizer="grid+adam", fit_maxiter_warm=5, fit_lr=0.1)
     jgp, tgp = JGPConfig(**gp_kw), GPConfig(**gp_kw)
     tr_kw = dict(fail_tol=2, stagnation_tol=3)
-    cfg_kw = dict(n_init=N_INIT, max_evals=200, batch_size=Q, n_candidates=N_CAND, ts_chunk=CHUNK)
+    cfg_kw = dict(n_init=N_INIT, max_evals=200, batch_size=Q, n_candidates=N_CAND, ts_chunk=CHUNK, **options)
     jcfg = JT.TurboConfig(**cfg_kw, tr=JTRConfig(**tr_kw))
     tcfg = TT.TurboConfig(**cfg_kw, tr=TRConfig(**tr_kw))
     m, fail_tol = 3, 2
@@ -202,15 +243,7 @@ def test_turbom_step_matches_jax(case):
     prop_keys = jax.random.split(k_prop, m)
     _, cands_j, values_j = jax.vmap(lambda c, k: JM._tr_proposals_and_values(c, k, jcfg, jgp, N_CAND))(
         carries_j, prop_keys)
-    draws = []
-    for i in range(m):
-        k_ts = jax.random.split(prop_keys[i], 3)[2]
-        chunk_keys = jax.random.split(k_ts, N_CAND // CHUNK)
-        normals = jnp.concatenate([jax.random.normal(k, (Q, CHUNK), jnp.float64) for k in chunk_keys], axis=1)
-        draws.append(TM.Draws(
-            cands=torch.as_tensor(np.asarray(cands_j[i])), normals=torch.as_tensor(np.asarray(normals)),
-            forcing=torch.as_tensor(np.asarray(jax.random.uniform(k_ts, (Q, 1), jnp.float64))),
-        ))
+    draws = [_draws_of(prop_keys[i], cands_j[i], tcfg) for i in range(m)]
     streams = torch.as_tensor(np.stack([np.asarray(JS.latin_hypercube(k, 8, D, jnp.float64)) for k in restart_keys]))
     y_sel = _objective(np.asarray(x_sel_j)) + 50.0  # no region improves
     c2_j, best_j = JM.turbom_absorb_batch(c1_j, x_sel_j, jnp.asarray(y_sel), tr_idx_j, restart_keys, jcfg, jgp, m, fail_tol)
@@ -268,7 +301,7 @@ def test_split_capacity_equals_uniform_capacity():
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-12)
 
 
-def test_optimize_turbom_cpu_improves_on_initial_design():
+def test_optimize_turbom_cpu_improves_on_initial_design(tmp_path):
     bench = TB.get_benchmark("rover60")
     cfg = TRG.get_config("turbom5_rover60")
     res = optimize(bench.fn, bench.lb, bench.ub, 60, method="turbom", m=2, n_init=10, batch_size=10,
@@ -278,6 +311,10 @@ def test_optimize_turbom_cpu_improves_on_initial_design():
     assert np.all(np.diff(res.incumbent_trace) <= 0)
     assert res.best_y < res.incumbent_trace[1]  # the best of the two 10-point initial designs
     assert res.best_y == pytest.approx(float(bench.fn(torch.as_tensor(res.best_x)[None])[0]), rel=1e-5)
-    with pytest.raises(NotImplementedError):  # checkpointing is not ported yet
-        optimize(bench.fn, bench.lb, bench.ub, 60, method="bo", checkpoint_path="run.ckpt", checkpoint_every=1,
-                 device="cpu")
+    # a checkpointed run saves as it goes; resuming its finished checkpoint returns the same run
+    path = str(tmp_path / "run.ckpt")
+    kw = dict(method="bo", n_init=6, batch_size=2, n_candidates=64, seed=0, device="cpu", checkpoint_path=path,
+              checkpoint_every=1)
+    ref = optimize(bench.fn, bench.lb, bench.ub, 12, **kw)
+    again = optimize(bench.fn, bench.lb, bench.ub, 12, resume=True, **kw)
+    np.testing.assert_array_equal(again.incumbent_trace, ref.incumbent_trace)

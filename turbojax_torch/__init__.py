@@ -17,8 +17,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from turbojax_torch import checkpoint  # noqa: E402
 from turbojax_torch.api import Optimizer, Result, Turbo1, TurboM, optimize  # noqa: E402
 from turbojax_torch.bo import BOConfig, run_bo  # noqa: E402
 from turbojax_torch.config import GPConfig, TRConfig  # noqa: E402
+from turbojax_torch.runlog import RunLog  # noqa: E402
 
-__all__ = ["BOConfig", "GPConfig", "Optimizer", "Result", "TRConfig", "Turbo1", "TurboM", "optimize", "run_bo"]
+__all__ = ["BOConfig", "GPConfig", "Optimizer", "Result", "RunLog", "TRConfig", "Turbo1", "TurboM", "checkpoint",
+           "optimize", "run_bo"]

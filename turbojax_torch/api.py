@@ -6,8 +6,9 @@ and the constructor-style ``Turbo1`` and ``TurboM``.
 ``device`` and ``generator``; its objective maps a (q, d) tensor in the
 original box to a (q,) tensor. The ``Optimizer`` takes and returns numpy
 arrays and keeps tensors on the device inside. Every entry point runs on the
-GPU unless the caller asks for the CPU. Checkpointing (``checkpoint_*``,
-``save``/``restore``) and meshes are not ported and raise
+GPU unless the caller asks for the CPU. Runs checkpoint and resume
+(``checkpoint_*``, ``resume``, ``Optimizer.save``/``restore``) bit for bit;
+meshes (``mesh=``, ``budget_bytes=``) are not ported and raise
 ``NotImplementedError``.
 """
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from turbojax_torch import bo as BO
+from turbojax_torch import checkpoint as CKPT
 from turbojax_torch import gp as G
 from turbojax_torch import linalg as L
 from turbojax_torch import sampling as S
@@ -61,6 +63,26 @@ def bo_result(res: BO.BOResult) -> Result:
     )
 
 
+def turbo_result(carries: TR.TurboCarry, trace: Tensor, lb: Sequence[float], ub: Sequence[float]) -> Result:
+    """A ``run_turbo1`` or ``run_turbom`` result at the package boundary:
+    the best region's incumbent, and the active rows of every region's
+    history (one region for TuRBO-1, whose ``n`` is an int)."""
+    if isinstance(carries.n, int):
+        carries = TR.stack_carries([carries])
+    best = TR.carry_lane(carries, int(torch.argmin(carries.best_y)))
+    lo = torch.tensor(tuple(lb), dtype=best.x_buf.dtype, device=best.x_buf.device)
+    hi = torch.tensor(tuple(ub), dtype=best.x_buf.dtype, device=best.x_buf.device)
+    xs = torch.cat([carries.x_buf[i, :n] for i, n in enumerate(carries.n)])
+    ys = torch.cat([carries.y_buf[i, :n] for i, n in enumerate(carries.n)])
+    return Result(
+        best_x=T.from_unit_cube(best.best_x, lo, hi).cpu().numpy(),
+        best_y=float(best.best_y),
+        x_hist=T.from_unit_cube(xs, lo, hi).cpu().numpy(),
+        y_hist=ys.cpu().numpy(),
+        incumbent_trace=trace.cpu().numpy(),
+    )
+
+
 def optimize(
     fn: Callable[[Tensor], Tensor],
     lb: Sequence[float],
@@ -94,14 +116,16 @@ def optimize(
     ``device`` with a generator seeded from ``seed``. The default device is
     the GPU (``"cuda"``): without one this raises, and the CPU runs only
     when asked for with ``device="cpu"``.
+    ``checkpoint_path`` with ``checkpoint_every=k`` saves the run every k
+    iterations; ``resume=True`` restores it from ``checkpoint_path`` when it
+    exists and continues the uninterrupted run bit for bit (a fresh start
+    otherwise; a finished run's checkpoint returns its result at once).
     ``ts_chunk`` is the Thompson-sampling chunk of the candidate axis (None
     samples all candidates jointly, as the JAX package's ``optimize`` does).
     ``host_loop`` does not apply (the loops are host loops); it keeps the
     JAX package's signature."""
     if method not in ("bo", "turbo1", "turbom"):
         raise ValueError(f"unknown method {method!r}")
-    if checkpoint_path or checkpoint_every or resume:
-        raise NotImplementedError("checkpointing is not ported yet")
     if mesh is not None or budget_bytes is not None:
         raise NotImplementedError("mesh= and budget_bytes= are not ported yet")
     if generator is None:
@@ -113,42 +137,22 @@ def optimize(
     dim = len(lb_t)
     n_init = n_init or min(2 * dim, max_evals // 3) or 1
     batch_size = batch_size or (1 if method == "bo" else 10)
+    ckpt = dict(checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every, resume=resume)
     if method == "bo":
         cfg = BO.BOConfig(
             n_init=n_init, max_evals=max_evals, batch_size=batch_size, acq=acq, fit_every=fit_every,
             n_candidates=n_candidates or S.n_candidates(dim), ts_chunk=ts_chunk,
         )
-        return bo_result(BO.run_bo(fn, lb_t, ub_t, cfg, gp_config, generator))
+        return bo_result(BO.run_bo(fn, lb_t, ub_t, cfg, gp_config, generator, **ckpt))
     cfg = TR.TurboConfig(
         n_init=n_init, max_evals=max_evals, batch_size=batch_size,
         n_candidates=n_candidates, fit_every=fit_every, ts_chunk=ts_chunk, tr=tr_config,
     )
     if method == "turbom":
-        carries, trace = TM.run_turbom(fn, lb_t, ub_t, cfg, gp_config, m, generator)
-        best_tr = int(torch.argmin(carries.best_y))
-        carry = TR.carry_lane(carries, best_tr)
-        lo = torch.tensor(lb_t, dtype=carry.x_buf.dtype, device=carry.x_buf.device)
-        hi = torch.tensor(ub_t, dtype=carry.x_buf.dtype, device=carry.x_buf.device)
-        xs = torch.cat([carries.x_buf[i, :n] for i, n in enumerate(carries.n)])
-        ys = torch.cat([carries.y_buf[i, :n] for i, n in enumerate(carries.n)])
-        return Result(
-            best_x=T.from_unit_cube(carry.best_x, lo, hi).cpu().numpy(),
-            best_y=float(carry.best_y),
-            x_hist=T.from_unit_cube(xs, lo, hi).cpu().numpy(),
-            y_hist=ys.cpu().numpy(),
-            incumbent_trace=trace.cpu().numpy(),
-        )
-    carry, trace = TR.run_turbo1(fn, lb_t, ub_t, cfg, gp_config, generator)
-    lo = torch.tensor(lb_t, dtype=carry.x_buf.dtype, device=carry.x_buf.device)
-    hi = torch.tensor(ub_t, dtype=carry.x_buf.dtype, device=carry.x_buf.device)
-    n = carry.n
-    return Result(
-        best_x=T.from_unit_cube(carry.best_x, lo, hi).cpu().numpy(),
-        best_y=float(carry.best_y),
-        x_hist=T.from_unit_cube(carry.x_buf[:n], lo, hi).cpu().numpy(),
-        y_hist=carry.y_buf[:n].cpu().numpy(),
-        incumbent_trace=trace.cpu().numpy(),
-    )
+        carries, trace = TM.run_turbom(fn, lb_t, ub_t, cfg, gp_config, m, generator, **ckpt)
+    else:
+        carries, trace = TR.run_turbo1(fn, lb_t, ub_t, cfg, gp_config, generator, **ckpt)
+    return turbo_result(carries, trace, lb_t, ub_t)
 
 
 class Optimizer:
@@ -195,12 +199,17 @@ class Optimizer:
         growth); TuRBO-m fits on views sized to the active counts, as
         ``turbo_m.run_turbom`` does.
 
+        ``checkpoint_path``/``checkpoint_every``: write the whole optimizer
+        state (device carry, generator state, host history) every k tells;
+        to resume, construct an identically configured ``Optimizer`` and
+        call its ``restore(path)``, then continue bit for bit.
+
         ``device=None`` is the GPU; without one this raises, and the CPU
         runs only when asked for with ``device="cpu"``."""
         if method not in ("bo", "turbo1", "turbom"):
             raise ValueError("ask/tell supports methods 'bo', 'turbo1' and 'turbom'")
-        if checkpoint_path or checkpoint_every:
-            raise NotImplementedError("checkpointing is not ported yet")
+        self._ckpt_path = checkpoint_path
+        self._ckpt_every = checkpoint_every
         self.device = _resolve_device(device, "Optimizer")
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._dtype = torch.float32
@@ -332,12 +341,53 @@ class Optimizer:
         self._trace.append(self.best[1])
         self._pending = None
         self._n_tells += 1
+        if self._ckpt_path and self._ckpt_every and self._n_tells % self._ckpt_every == 0:
+            self.save(self._ckpt_path)
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def _state(self, carry) -> dict:
+        state = {"carry": carry, "rng": self._generator.get_state()}
+        if self.method == "bo":
+            state["init_x"] = self._init_x
+        return state
 
     def save(self, path: str) -> None:
-        raise NotImplementedError("checkpointing is not ported yet")
+        """Write the whole optimizer state: the device carry, the
+        generator's state and the host history (the JAX package's metadata
+        fields)."""
+        CKPT.save_state(path, self._state(self._carry), meta={
+            "method": self.method,
+            "n_tells": self._n_tells,
+            "history_x": [x.tolist() for x in self._history_x],
+            "history_y": [y.tolist() for y in self._history_y],
+            "trace": [float(t) for t in self._trace],
+            "n_told": getattr(self, "_n_told", None),
+            "has_carry": self._carry is not None,
+        })
 
     def restore(self, path: str) -> "Optimizer":
-        raise NotImplementedError("checkpointing is not ported yet")
+        """Load the state ``save`` wrote into this (identically configured)
+        optimizer; the next ``ask`` is the one the saved optimizer would
+        have made."""
+        meta = CKPT.load_meta(path)
+        if meta["method"] != self.method:
+            raise ValueError(f"the checkpoint is of method {meta['method']!r}, this optimizer's is {self.method!r}")
+        like = self._carry
+        if self.method == "bo":
+            like = BO.carry_like(self.dim, self.gp_config, self._dtype, self.device) if meta["has_carry"] else None
+        state = CKPT.load_state(path, self._state(like))
+        self._carry = state["carry"]
+        self._generator.set_state(state["rng"])
+        if self.method == "bo":
+            self._init_x = state["init_x"]
+            self._n_told = meta["n_told"]
+        self._n_tells = meta["n_tells"]
+        self._history_x = [np.asarray(x, np.float32).reshape(-1, self.dim) for x in meta["history_x"]]
+        self._history_y = [np.asarray(y, np.float32).reshape(-1) for y in meta["history_y"]]
+        self._trace = list(meta["trace"])
+        self._pending = None
+        return self
 
     def _build_bo_carry(self) -> BO.BOCarry:
         xs = np.concatenate(self._history_x)

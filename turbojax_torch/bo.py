@@ -12,15 +12,14 @@ The JAX package runs the loop as one ``lax.scan`` or as a host loop over a
 jitted step; here it is a host loop over device tensors, and the active
 count ``n`` is a host int. Every random draw comes from an explicit
 ``torch.Generator`` or is handed in (the init design, the candidates, the
-Thompson normals, the restart uniforms). The RFF and pathwise Thompson
-samplers, ``ts_dtype`` and checkpointing are not ported and raise
-``NotImplementedError``.
+Thompson sampler's draws, the restart uniforms). ``run_bo`` checkpoints the
+carry with the generator's state and resumes bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,8 +56,8 @@ class BOConfig:
     local_sigma: float = 0.05
     sobol_scramble: str = "shift"  # "shift" | "lms"
     ts_chunk: Optional[int] = None
-    ts_sampler: str = "exact"  # only "exact" is ported
-    ts_dtype: Optional[str] = None  # only None is ported
+    ts_sampler: str = "exact"  # "exact" | "rff" | "pathwise" (acq.thompson_values)
+    ts_dtype: Optional[str] = None  # "float64": the exact sampler in f64
     rff_features: int = 1024
     cand_shard_min: Optional[int] = None  # the distributed loop's; unused here
     chol_mode: str = "auto"  # "incremental" | "refactor" | "auto"
@@ -107,11 +106,14 @@ class BOResult(NamedTuple):
     incumbent_trace: Tensor  # (n_iters,) best y after each iteration
 
 
-def _check_ported(bo: BOConfig) -> None:
-    if bo.ts_sampler != "exact":
-        raise NotImplementedError(f"ts_sampler={bo.ts_sampler!r} is not ported yet; only 'exact' is")
-    if bo.ts_dtype is not None:
-        raise NotImplementedError(f"ts_dtype={bo.ts_dtype!r} is not ported yet; only None is")
+def carry_like(dim: int, config: GPConfig, dtype=torch.float32, device=None) -> BOCarry:
+    """An empty carry: the structure, devices and dtypes ``checkpoint.load_state``
+    restores a saved carry along."""
+    def empty(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return BOCarry(x_buf=empty(0, dim), y_buf=empty(0), n=0, chol=empty(0, 0),
+                   raw=G.default_params(dim, config, dtype, device), y_mean=empty(), y_std=empty())
 
 
 def _mask(carry: BOCarry) -> Tensor:
@@ -178,13 +180,12 @@ def lowest_k(scores: Tensor, k: int) -> Tensor:
 
 def _suggest(
     carry: BOCarry, config: GPConfig, bo: BOConfig, generator: Optional[torch.Generator] = None,
-    cands: Optional[Tensor] = None, normals: Optional[Tensor] = None,
+    cands: Optional[Tensor] = None, draws: A.Draws = A.Draws(),
 ) -> Tensor:
     """One acquisition maximization over a fresh global candidate set;
     returns (q, d) unit-cube points. ``cands`` ((n_candidates, d)) replaces
-    the candidate draws (Sobol, and the local pool) and ``normals``
-    ((q, n_candidates)) the Thompson normals."""
-    _check_ported(bo)
+    the candidate draws (Sobol, and the local pool) and ``draws`` the
+    Thompson sampler's (``bo.ts_sampler``)."""
     dim = carry.x_buf.shape[-1]
     dtype, device = carry.x_buf.dtype, carry.x_buf.device
     mask = _mask(carry)
@@ -197,8 +198,9 @@ def _suggest(
             cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
     state = _state_from_carry(carry, config)
     if bo.acq == "ts":
-        xs, _ = A.thompson_select(state, cands, bo.batch_size, config, bo.ts_chunk, generator, normals)
-        return xs
+        values = A.thompson_values(state, cands, bo.batch_size, config, bo.ts_sampler, bo.ts_chunk, bo.ts_dtype,
+                                   bo.rff_features, generator, draws)
+        return cands[A.select_q_batch(values)[0]]
     mu, var = G.gp_posterior(state, cands, config)
     if bo.acq == "ei":
         # the incumbent lives in the same (possibly warped) space as the
@@ -246,13 +248,13 @@ def _bo_init(
 def _bo_step(
     carry: BOCarry, it: int, fn, lb_t: Tensor, ub_t: Tensor, bo: BOConfig, config: GPConfig,
     generator: Optional[torch.Generator] = None, cands: Optional[Tensor] = None,
-    normals: Optional[Tensor] = None, restart_uniforms: Optional[Tensor] = None,
+    draws: A.Draws = A.Draws(), restart_uniforms: Optional[Tensor] = None,
 ) -> Tuple[BOCarry, Tensor]:
     """One iteration: refit at the cadence, suggest, evaluate, impute
     failures against the history, append. Returns (carry, best y so far)."""
     if bo.fit_every > 0 and it % bo.fit_every == 0:
         carry = _refit_carry(carry, config, generator, restart_uniforms)
-    x_unit = _suggest(carry, config, bo, generator, cands, normals)
+    x_unit = _suggest(carry, config, bo, generator, cands, draws)
     y_new = fn(T.from_unit_cube(x_unit, lb_t, ub_t)).to(x_unit.dtype)
     y_new = T.impute_failures(y_new, carry.y_buf, _mask(carry))
     carry = _append_batch(carry, x_unit, y_new, config, bo.resolved_chol_mode(x_unit.device))
@@ -293,20 +295,25 @@ def run_bo(
     fixed-hyperparameter GP of config 1); otherwise it warm-starts the first
     fit. ``on_iteration(iteration, best)`` is called after each step with the
     incumbent as a device tensor (reading it is the caller's sync).
+    ``checkpoint_path`` with ``checkpoint_every=k`` saves the carry and the
+    generator's state every k iterations; ``resume=True`` restores them from
+    ``checkpoint_path`` when it exists (a fresh start otherwise, the initial
+    design included) and continues the uninterrupted run bit for bit.
     ``host_loop`` keeps the JAX package's signature and changes nothing."""
-    if checkpoint_path or checkpoint_every or resume:
-        raise NotImplementedError("checkpointing is not ported yet")
-    _check_ported(bo)
+    from turbojax_torch.checkpoint import RunCheckpointer
+
     device = generator.device
     lb_t = torch.tensor(tuple(lb), dtype=dtype, device=device)
     ub_t = torch.tensor(tuple(ub), dtype=dtype, device=device)
     n_max = n_max or bo.n_init + bo.n_iters * bo.batch_size
-    carry = _bo_init(fn, lb_t, ub_t, bo, config, n_max, fixed_params, generator)
-    trace: List[Tensor] = []
-    for it in range(bo.n_iters):
+    ckpt = RunCheckpointer(checkpoint_path, checkpoint_every, generator)
+    carry, trace = ckpt.start(resume, lambda: carry_like(len(lb), config, dtype, device), lb_t,
+                              lambda: _bo_init(fn, lb_t, ub_t, bo, config, n_max, fixed_params, generator))
+    for it in range(len(trace), bo.n_iters):
         carry, best = _bo_step(carry, it, fn, lb_t, ub_t, bo, config, generator)
         trace.append(best)
         if on_iteration is not None:
             on_iteration(it, best)
+        ckpt.maybe_save(it + 1, carry, trace, last=it + 1 == bo.n_iters)
     trace_t = torch.stack(trace) if trace else torch.empty(0, dtype=dtype, device=device)
     return _bo_result(carry, lb_t, ub_t, trace_t)

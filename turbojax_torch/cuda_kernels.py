@@ -29,7 +29,9 @@ autograd, as the JAX package's ``custom_jvp`` does. ``ts_cov`` takes no
 gradient (nothing on the path differentiates a Thompson draw).
 
 ``LAUNCHES`` and ``TS_COV_LAUNCHES`` count each kernel's launches, so that
-a run can show that its main path went through the kernels.
+a run can show that its main path went through the kernels;
+``LAUNCHES_F64`` and ``TS_COV_LAUNCHES_F64`` count those of the float64
+instantiations among them (the f64 Thompson lane's).
 """
 
 from __future__ import annotations
@@ -55,6 +57,9 @@ Tensor = torch.Tensor
 LAUNCHES = 0
 #: Launches of the TS-covariance kernel since import (or since a caller reset it).
 TS_COV_LAUNCHES = 0
+#: Of those, the launches of each kernel's float64 instantiation.
+LAUNCHES_F64 = 0
+TS_COV_LAUNCHES_F64 = 0
 
 KERNEL_IDS = {"rbf": 0, "matern12": 1, "matern32": 2, "matern52": 3}
 
@@ -336,7 +341,7 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
             kernel_name: str, add_noise: bool, same: bool) -> Tensor:
     """Launch the CUDA kernel on (n, d)/(m, d) or (B, n, d)/(B, m, d) CUDA
     tensors: one call into the library."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F64
     if z1.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {z1.dtype}")
     if not (z1.is_contiguous() and z2.is_contiguous()):
@@ -360,6 +365,7 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
             f"kernel_matrix launch failed: {lib.kernel_matrix_error_string(err).decode()} ({err})"
         )
     LAUNCHES += 1
+    LAUNCHES_F64 += z1.dtype == torch.float64
     return out if z1.dim() == 3 else out[0]
 
 
@@ -454,7 +460,7 @@ def _ts_cov_args(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, sms
 def _launch_ts_cov(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, kernel_name: str) -> Tensor:
     """Launch the CUDA kernel on (m, d)/(n, m) or (B, m, d)/(B, n, m) CUDA
     tensors: one call into the library (its two passes)."""
-    global TS_COV_LAUNCHES
+    global TS_COV_LAUNCHES, TS_COV_LAUNCHES_F64
     if zs.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the CUDA kernel takes float32 or float64, not {zs.dtype}")
     if zs.shape[-2] == 0 or (zs.dim() == 3 and zs.shape[0] == 0):
@@ -476,6 +482,7 @@ def _launch_ts_cov(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, k
     if err != 0:
         raise RuntimeError(f"ts_cov launch failed: {lib.ts_cov_error_string(err).decode()} ({err})")
     TS_COV_LAUNCHES += 1
+    TS_COV_LAUNCHES_F64 += zs.dtype == torch.float64
     return out if zs.dim() == 3 else out[0]
 
 

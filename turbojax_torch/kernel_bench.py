@@ -4,11 +4,13 @@
     python3 -m turbojax_torch.kernel_bench --baseline DIR
     python3 -m turbojax_torch.kernel_bench --chol
 
-For each shape one JSON line: the kernel's time and the plain version's by
+For each shape (float32, and the f64 Thompson lane's shapes in float64) one
+JSON line: the kernel's time and the plain version's by
 CUDA events over back-to-back calls (at small shapes that is the host's
 time per call), the kernel's device time per call from ``torch.profiler``,
 the bound (the larger of the bytes over 3.35 TB/s and the operations over
-67 TFLOP/s in fp32 or 34 in fp64, an H100 SXM's peaks) with the resource
+67 TFLOP/s, an H100 SXM's peak in fp32 outside the tensor cores and in fp64
+on them) with the resource
 that sets it, the kernel's share of it, and ``library_ms`` (events) and
 ``library_device_ms`` (profiler), one PyTorch call's time where one
 computes a comparable function (``v.mT @ v`` for ts_cov's Gram part; none
@@ -45,7 +47,10 @@ import torch
 from turbojax_torch import cuda_kernels as CK
 
 HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# fp64's peak is the tensor cores' (DMMA is exact fp64; cuBLAS's DGEMM runs
+# above the 34 TFLOP/s of the fp64 CUDA cores), fp32's is outside them (TF32
+# is not fp32)
+FLOPS_PER_S = 67e12
 
 # (label, batch, n, m, d, K(Z, Z), kernel function): config 5's grid at the
 # 2000 and 512 rungs, its polish forward and cached factor, the small
@@ -70,6 +75,10 @@ KM_SHAPES = [
     ("bo2_lanes4_112x112_d6", 4, 112, 112, 6, True, "matern52"),
     ("bo2_cross_112x2000_d6", 1, 112, 2000, 6, False, "matern52"),
     ("bo2_append_1x112_d6", 1, 1, 112, 6, False, "matern52"),
+    # the pathwise sampler's cross k(x*, X): config 5's 5000 candidates against
+    # its largest rung, config 4's 1000 against its 1000-row buffer
+    ("pathwise_cross_5000x2000_d60", 1, 5000, 2000, 60, False, "matern52"),
+    ("pathwise_cross_1000x1000_d10", 1, 1000, 1000, 10, False, "matern52"),
 ]
 # (label, batch, m, n, d): the single chunks the paths launch
 TS_SHAPES = [
@@ -78,7 +87,21 @@ TS_SHAPES = [
     ("path_1x1000_n1000_d10", 1, 1000, 1000, 10),
     ("bench_1x1000_n2048_d10", 1, 1000, 2048, 10),
 ]
+# the f64 Thompson lane (ts_dtype="float64"): acq._state_f64's refactorization,
+# posterior_cov's cross and the chunk covariance, at config 4's sizes (the
+# lane of phase 8) and at config 5's largest rung
+KM_F64_SHAPES = [
+    ("f64_kxx_1000x1000_d10", 1, 1000, 1000, 10, True, "matern52"),
+    ("f64_cross_1000x1000_d10", 1, 1000, 1000, 10, False, "matern52"),
+    ("f64_kxx_2000x2000_d60", 1, 2000, 2000, 60, True, "matern52"),
+    ("f64_cross_2000x1000_d60", 1, 2000, 1000, 60, False, "matern52"),
+]
+TS_F64_SHAPES = [
+    ("f64_path_1x1000_n1000_d10", 1, 1000, 1000, 10),
+    ("f64_path_1x1000_n2000_d60", 1, 1000, 2000, 60),
+]
 KM_HEADLINE, TS_HEADLINE = KM_SHAPES[0][0], TS_SHAPES[0][0]
+KM_F64_HEADLINE, TS_F64_HEADLINE = KM_F64_SHAPES[0][0], TS_F64_SHAPES[0][0]
 _EPILOGUE_OPS = 12  # per distinct entry: d² from the norms, clamp, sqrt, exp and the polynomial
 
 
@@ -89,8 +112,8 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def _bound(nbytes: float, ops: float, dtype) -> Dict[str, object]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S[dtype]
+def _bound(nbytes: float, ops: float) -> Dict[str, object]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
 
@@ -101,7 +124,7 @@ def kernel_matrix_bound(batch, n, m, d, same, dtype=torch.float32) -> Dict[str, 
     size = torch.finfo(dtype).bits // 8
     entries = batch * (n * (n + 1) // 2 if same else n * m)
     nbytes = size * batch * (n * d + (0 if same else m * d) + n * m)
-    return _bound(nbytes, entries * (2 * d + _EPILOGUE_OPS), dtype)
+    return _bound(nbytes, entries * (2 * d + _EPILOGUE_OPS))
 
 
 def ts_cov_bound(batch, m, n, d, dtype=torch.float32) -> Dict[str, object]:
@@ -110,7 +133,7 @@ def ts_cov_bound(batch, m, n, d, dtype=torch.float32) -> Dict[str, object]:
     size = torch.finfo(dtype).bits // 8
     entries = batch * m * (m + 1) // 2
     nbytes = size * batch * (m * d + n * m + m * m)
-    return _bound(nbytes, entries * (2 * (n + d) + _EPILOGUE_OPS), dtype)
+    return _bound(nbytes, entries * (2 * (n + d) + _EPILOGUE_OPS))
 
 
 def _event_ms(fn: Callable[[], object], reps: int) -> float:
@@ -154,25 +177,27 @@ def device_ms(fn: Callable[[], object], reps: int) -> Optional[float]:
     return us / 1e3 / reps if us > 0 else None
 
 
-def _inputs_km(gen, batch, n, m, d, same):
-    z1 = torch.rand((batch, n, d), generator=gen, device="cuda") / math.sqrt(d / 24)
+def _inputs_km(gen, batch, n, m, d, same, dtype=torch.float32):
+    kw = dict(device="cuda", dtype=dtype)
+    z1 = torch.rand((batch, n, d), generator=gen, **kw) / math.sqrt(d / 24)
     z1 = (z1 - z1.mean(dim=-2, keepdim=True)).contiguous()
-    z2 = z1 if same else (torch.rand((batch, m, d), generator=gen, device="cuda") / math.sqrt(d / 24)).contiguous()
+    z2 = z1 if same else (torch.rand((batch, m, d), generator=gen, **kw) / math.sqrt(d / 24)).contiguous()
     if batch == 1:
         z1 = z1[0]
         z2 = z1 if same else z2[0]
-        return z1, z2, torch.tensor(1.3, device="cuda"), torch.tensor(1e-3, device="cuda")
-    return z1, z2, torch.full((batch,), 1.3, device="cuda"), torch.full((batch,), 1e-3, device="cuda")
+        return z1, z2, torch.tensor(1.3, **kw), torch.tensor(1e-3, **kw)
+    return z1, z2, torch.full((batch,), 1.3, **kw), torch.full((batch,), 1e-3, **kw)
 
 
-def _inputs_ts(gen, batch, m, n, d):
-    zs = torch.rand((batch, m, d), generator=gen, device="cuda") / math.sqrt(d / 24)
+def _inputs_ts(gen, batch, m, n, d, dtype=torch.float32):
+    kw = dict(device="cuda", dtype=dtype)
+    zs = torch.rand((batch, m, d), generator=gen, **kw) / math.sqrt(d / 24)
     zs = (zs - zs.mean(dim=-2, keepdim=True)).contiguous()
-    v = torch.randn((batch, n, m), generator=gen, device="cuda") / math.sqrt(n)
-    jitter = torch.zeros((), device="cuda")
+    v = torch.randn((batch, n, m), generator=gen, **kw) / math.sqrt(n)
+    jitter = torch.zeros((), **kw)
     if batch == 1:
-        return zs[0], v[0], torch.tensor(1.3, device="cuda"), jitter
-    return zs, v, torch.full((batch,), 1.3, device="cuda"), jitter
+        return zs[0], v[0], torch.tensor(1.3, **kw), jitter
+    return zs, v, torch.full((batch,), 1.3, **kw), jitter
 
 
 def _line(kind, label, dims, bound, times, dev, base_dev, smi, lib_dev=None) -> Dict[str, object]:
@@ -185,26 +210,29 @@ def _line(kind, label, dims, bound, times, dev, base_dev, smi, lib_dev=None) -> 
 
 
 def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict[str, Dict[str, object]]:
-    """Times both kernels at KM_SHAPES and TS_SHAPES in float32 (with
-    ``baseline``, another cuda_kernels module, in turns); returns {label:
-    line} and passes each line to ``emit`` as it is measured."""
+    """Times both kernels at KM_SHAPES and TS_SHAPES in float32 and at
+    KM_F64_SHAPES and TS_F64_SHAPES in float64 (with ``baseline``, another
+    cuda_kernels module, in turns); returns {label: line} and passes each
+    line to ``emit`` as it is measured."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     lines = {}
     mods = {"kernel": CK, **({"baseline": baseline} if baseline is not None else {})}
-    for label, batch, n, m, d, same, kfn in KM_SHAPES:
-        z1, z2, s, nz = _inputs_km(gen, batch, n, m, d, same)
+    km = [(s, torch.float32) for s in KM_SHAPES] + [(s, torch.float64) for s in KM_F64_SHAPES]
+    for (label, batch, n, m, d, same, kfn), dtype in km:
+        z1, z2, s, nz = _inputs_km(gen, batch, n, m, d, same, dtype)
         fns = {"plain": lambda: CK.kernel_matrix_reference(z1, z2, s, nz, kfn, same)}
         fns.update({k: (lambda mod=mod: mod.kernel_matrix(z1, z2, s, nz, kfn, same)) for k, mod in mods.items()})
         times = in_turns(fns, reps)
         dev = device_ms(fns["kernel"], reps)
         base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
-        dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same, "kernel_fn": kfn}
-        lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(batch, n, m, d, same), times, dev,
-                             base_dev, smi)
+        dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same, "kernel_fn": kfn, "dtype": str(dtype)[6:]}
+        lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(batch, n, m, d, same, dtype), times,
+                             dev, base_dev, smi)
         emit(lines[label])
         del z1, z2
-    for label, batch, m, n, d in TS_SHAPES:
-        zs, v, s, jit = _inputs_ts(gen, batch, m, n, d)
+    ts = [(s, torch.float32) for s in TS_SHAPES] + [(s, torch.float64) for s in TS_F64_SHAPES]
+    for (label, batch, m, n, d), dtype in ts:
+        zs, v, s, jit = _inputs_ts(gen, batch, m, n, d, dtype)
         fns = {"plain": lambda: CK.ts_cov_reference(zs, v, s, jit, "matern52"),
                "library": lambda: torch.matmul(v.mT, v)}
         fns.update({k: (lambda mod=mod: mod.ts_cov(zs, v, s, jit, "matern52")) for k, mod in mods.items()})
@@ -212,8 +240,9 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
         dev = device_ms(fns["kernel"], reps)
         base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
         plan = CK.ts_cov_plan(batch, m, n, d)
-        dims = {"batch": batch, "m": m, "n": n, "d": d, "splits": plan.splits, "chunk": plan.chunk}
-        lines[label] = _line("ts_cov", label, dims, ts_cov_bound(batch, m, n, d), times, dev, base_dev, smi,
+        dims = {"batch": batch, "m": m, "n": n, "d": d, "splits": plan.splits, "chunk": plan.chunk,
+                "dtype": str(dtype)[6:]}
+        lines[label] = _line("ts_cov", label, dims, ts_cov_bound(batch, m, n, d, dtype), times, dev, base_dev, smi,
                              device_ms(fns["library"], reps))
         emit(lines[label])
     return lines

@@ -161,26 +161,36 @@ def tr_candidates(
     scramble: str = "shift",
     shift: Optional[Tensor] = None,
     mask: Optional[Tensor] = None,
+    local_sigma: float = 0.3,
+    local_normals: Optional[Tensor] = None,
 ) -> Tensor:
     """TuRBO trust-region candidates in the unit cube.
 
     The box side per dimension is the TR length scaled by the normalized ARD
     weights ``w = ℓ/mean(ℓ) / prod(ℓ/mean(ℓ))^(1/d)``; Sobol points fill the
     clipped box, and each candidate perturbs only a masked subset of
-    dimensions away from the center. ``shift`` (the Sobol digital shift) and
-    ``mask`` ((n_cand, d) bool perturbation mask) replace the draws.
-    ``local_frac > 0`` (Gaussian local candidates) is later work."""
-    if local_frac:
-        raise NotImplementedError("local_frac > 0 is not ported yet")
+    dimensions away from the center. ``local_frac > 0`` replaces
+    round(local_frac·n_cand) of the Sobol points (the last rows) with
+    Gaussian draws around the center, σ = ``local_sigma`` × the per-dimension
+    half width, clipped to the box; they get the same perturbation masks.
+    ``shift`` (the Sobol digital shift), ``mask`` ((n_cand, d) bool
+    perturbation mask) and ``local_normals`` ((n_local, d) standard normals)
+    replace the draws."""
     dim = center.shape[-1]
     w = lengthscale / lengthscale.mean()
     w = w / torch.exp(torch.log(w).mean())  # prod(w)^(1/d) normalization
     half = w * length / 2.0
     lb = torch.clamp(center - half, 0.0, 1.0)
     ub = torch.clamp(center + half, 0.0, 1.0)
+    n_local = int(round(local_frac * n_cand))
     pert = lb + (ub - lb) * sobol_sample(
-        dim, n_cand, generator, center.dtype, center.device, scramble, shift
+        dim, n_cand - n_local, generator, center.dtype, center.device, scramble, shift
     )
+    if n_local:
+        if local_normals is None:
+            local_normals = torch.randn((n_local, dim), generator=generator, dtype=center.dtype, device=center.device)
+        g = center + local_sigma * half * local_normals.to(center.dtype)
+        pert = torch.cat([pert, torch.minimum(torch.maximum(g, lb), ub)], dim=0)
     if mask is None:
         mask = perturbation_mask(n_cand, dim, generator, center.device)
     return torch.where(mask, pert, center[None, :])

@@ -19,7 +19,7 @@ Buffers stay statically shaped and masked, ``(N_max, ·)``, as in JAX.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,22 +36,19 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class TurboConfig:
-    """TuRBO loop knobs (same fields and defaults as the JAX package's).
-    Not ported yet: ``ts_sampler`` other than ``"exact"``, ``ts_dtype`` and
-    ``local_frac > 0``; they raise ``NotImplementedError`` when the loop
-    reaches them."""
+    """TuRBO loop knobs (same fields and defaults as the JAX package's)."""
 
     n_init: int = 20
     max_evals: int = 200
     batch_size: int = 10
     n_candidates: Optional[int] = None  # default min(100 d, 5000)
-    fit_every: int = 1  # refit cadence in accepted batches (search phase)
-    local_frac: float = 0.0
-    local_sigma: float = 0.3
+    fit_every: int = 1  # refit cadence in accepted batches (search phase); see refits_now
+    local_frac: float = 0.0  # share of the candidates drawn around the center (sampling.tr_candidates)
+    local_sigma: float = 0.3  # their σ, in TR half widths
     sobol_scramble: str = "shift"
     ts_chunk: Optional[int] = None
-    ts_sampler: str = "exact"
-    ts_dtype: Optional[str] = None
+    ts_sampler: str = "exact"  # "exact" | "rff" | "pathwise" (acq.thompson_values)
+    ts_dtype: Optional[str] = None  # "float64": the exact sampler in f64 (acq.thompson_samples)
     rff_features: int = 1024
     alloc_cap: Optional[int] = None
     tr: TRConfig = TRConfig()
@@ -142,37 +139,51 @@ def make_turbo_carry(dim: int, n_loc: int, cfg: TurboConfig, config: GPConfig,
     )
 
 
+def refits_now(n: int, cfg: TurboConfig) -> bool:
+    """The refit cadence: refit on every ``fit_every``-th batch of accepted
+    data, ``(n − n_init) // q``, so a region whose allocation share varies
+    refits per ~``fit_every·q`` points, and a region that just restarted
+    refits on its first search batch."""
+    return cfg.fit_every <= 1 or ((n - cfg.n_init) // cfg.batch_size) % cfg.fit_every == 0
+
+
 def _fit_or_reuse(c: TurboCarry, mask: Tensor, cfg: TurboConfig, config: GPConfig,
                   generator: Optional[torch.Generator] = None) -> G.GPState:
-    """Refit every ``fit_every``-th batch of accepted data; otherwise reuse
-    the carried hypers and only refactorize over the grown history."""
-    if cfg.fit_every <= 1 or ((c.n - cfg.n_init) // cfg.batch_size) % cfg.fit_every == 0:
+    """Refit at the cadence of ``refits_now``; otherwise reuse the carried
+    hypers and only refactorize over the grown history."""
+    if refits_now(c.n, cfg):
         return G.fit_gp(c.x_buf, c.y_buf, mask, config, warm_start=c.raw, generator=generator)
     return G.make_gp_state(c.x_buf, c.y_buf, mask, c.raw, config)
 
 
-def _check_ported(cfg: TurboConfig):
-    if cfg.ts_sampler != "exact":
-        raise NotImplementedError(f"ts_sampler={cfg.ts_sampler!r} is not ported yet; only 'exact' is")
-    if cfg.ts_dtype is not None:
-        raise NotImplementedError(f"ts_dtype={cfg.ts_dtype!r} is not ported yet; only None is")
+def candidates(carry: TurboCarry, state: G.GPState, cfg: TurboConfig, n_cand: int,
+               generator: Optional[torch.Generator] = None) -> Tensor:
+    """Trust-region candidates around the local incumbent of one region,
+    shaped by the fitted lengthscales."""
+    dim = carry.x_buf.shape[-1]
+    mask = L.row_mask(carry.x_buf.shape[0], carry.n, carry.x_buf.device)
+    best_idx = torch.argmin(torch.where(mask, carry.y_buf, torch.inf)).reshape(1)
+    ls = torch.broadcast_to(state.params["lengthscale"], (dim,))
+    return S.tr_candidates(
+        carry.x_buf.index_select(0, best_idx)[0], carry.tr.length, ls, n_cand, generator,
+        local_frac=cfg.local_frac, scramble=cfg.sobol_scramble, local_sigma=cfg.local_sigma,
+    )
 
 
 def turbo_propose(
     carry: TurboCarry, cfg: TurboConfig, config: GPConfig,
     generator: Optional[torch.Generator] = None,
-    cands: Optional[Tensor] = None, normals: Optional[Tensor] = None,
+    cands: Optional[Tensor] = None, draws: A.Draws = A.Draws(),
 ) -> Tuple[TurboCarry, Tensor, bool]:
     """Propose ``batch_size`` unit-cube points.
 
     Init phase (``n < n_init``): slice the LHS stream. Search phase: refit
-    and Thompson-sample trust-region candidates. ``cands`` ((n_cand, d)) and
-    ``normals`` ((q, n_cand)) replace the candidate and Thompson draws.
-    Returns (carry, (q, d) proposals, in_search)."""
-    _check_ported(cfg)
-    dim = carry.x_buf.shape[-1]
+    (at the ``fit_every`` cadence) and Thompson-sample trust-region
+    candidates with ``cfg.ts_sampler``. ``cands`` ((n_cand, d)) replaces the
+    candidate draws and ``draws`` the sampler's. Returns (carry, (q, d)
+    proposals, in_search)."""
     q = cfg.batch_size
-    n_cand = cfg.n_candidates or S.n_candidates(dim)
+    n_cand = cfg.n_candidates or S.n_candidates(carry.x_buf.shape[-1])
     if carry.n < cfg.n_init:
         start = min(carry.n, carry.init_stream.shape[0] - q)
         return carry, carry.init_stream[start:start + q], False
@@ -180,14 +191,11 @@ def turbo_propose(
     state = _fit_or_reuse(carry, mask, cfg, config, generator)
     carry = carry._replace(raw=state.raw)
     if cands is None:
-        best_idx = torch.argmin(torch.where(mask, carry.y_buf, torch.inf))
-        ls = torch.broadcast_to(state.params["lengthscale"], (dim,))
-        cands = S.tr_candidates(
-            carry.x_buf.index_select(0, best_idx.reshape(1))[0], carry.tr.length, ls, n_cand, generator,
-            cfg.local_frac, cfg.sobol_scramble,
-        )
-    xs, _ = A.thompson_select(state, cands, q, config, cfg.ts_chunk, generator, normals)
-    return carry, xs, True
+        cands = candidates(carry, state, cfg, n_cand, generator)
+    values = A.thompson_values(state, cands, q, config, cfg.ts_sampler, cfg.ts_chunk, cfg.ts_dtype,
+                               cfg.rff_features, generator, draws)
+    idxs, _ = A.select_q_batch(values)
+    return carry, cands[idxs], True
 
 
 def stack_carries(carries: Sequence[TurboCarry]) -> TurboCarry:
@@ -320,22 +328,45 @@ def run_turbo1(
     generator: torch.Generator,
     dtype=torch.float32,
     n_loc: Optional[int] = None,
+    on_iteration: Optional[Callable[[int, Tensor], None]] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
 ) -> Tuple[TurboCarry, Tensor]:
     """TuRBO-1 as a host loop of ``cfg.n_iters`` steps on the device of
     ``generator``. ``fn`` maps a (q, d) tensor in the box to a (q,) tensor.
+    ``on_iteration(iteration, best)`` is called after each step with the
+    incumbent as a device tensor (reading it is the caller's sync).
+
+    ``checkpoint_path`` with ``checkpoint_every=k`` saves the carry and the
+    generator's state every k iterations; ``resume=True`` restores them from
+    ``checkpoint_path`` when it exists (a fresh start otherwise) and
+    continues the uninterrupted run bit for bit.
     Returns (carry, incumbent trace (n_iters,))."""
+    from turbojax_torch.checkpoint import RunCheckpointer
+
     device = generator.device
     dim = len(lb)
     n_loc = n_loc or cfg.n_init + cfg.n_iters * cfg.batch_size
-    lb_t = torch.tensor(lb, dtype=dtype, device=device)
-    ub_t = torch.tensor(ub, dtype=dtype, device=device)
+    lb_t = torch.tensor(tuple(lb), dtype=dtype, device=device)
+    ub_t = torch.tensor(tuple(ub), dtype=dtype, device=device)
     fail_tol = cfg.tr.resolved_fail_tol(dim, cfg.batch_size)
-    carry = make_turbo_carry(dim, n_loc, cfg, config, generator, dtype, device)
-    trace: List[Tensor] = []
-    for _ in range(cfg.n_iters):
+    ckpt = RunCheckpointer(checkpoint_path, checkpoint_every, generator)
+    carry, trace = ckpt.start(
+        resume, lambda: make_turbo_carry(dim, 0, cfg, config, torch.Generator(device=device), dtype, device), lb_t,
+        lambda: make_turbo_carry(dim, n_loc, cfg, config, generator, dtype, device))
+    for it in range(len(trace), cfg.n_iters):
         carry, xs, in_search = turbo_propose(carry, cfg, config, generator)
         ys = fn(T.from_unit_cube(xs, lb_t, ub_t)).to(dtype)
         ys = T.impute_failures(ys, carry.y_buf, L.row_mask(n_loc, carry.n, device))
         carry = turbo_absorb(carry, xs, ys, in_search, cfg, fail_tol, generator)
         trace.append(carry.best_y)
+        if on_iteration is not None:
+            on_iteration(it, carry.best_y)
+        ckpt.maybe_save(it + 1, carry, trace, last=it + 1 == cfg.n_iters)
     return carry, torch.stack(trace) if trace else torch.empty(0, dtype=dtype, device=device)
+
+
+#: The JAX package's checkpointable segmented loop; here every loop is a
+#: host loop that checkpoints, so it is ``run_turbo1`` itself.
+run_turbo1_host = run_turbo1

@@ -35,7 +35,8 @@ from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
 from turbojax_torch.config import GPConfig
 from turbojax_torch.trust_region import (
-    TurboCarry, TurboConfig, _check_ported, _stream_len, absorb, make_turbo_carry, stack_carries,
+    TurboCarry, TurboConfig, _stream_len, absorb, candidates, carry_lane, make_turbo_carry, refits_now,
+    stack_carries,
 )
 
 Tensor = torch.Tensor
@@ -45,13 +46,13 @@ _CAPB_MIN = 512  # smallest fit capacity of the small group (and of the rung lad
 
 class Draws(NamedTuple):
     """Draws of one region that replace the generator's (tests hand in the
-    JAX package's): ``cands`` (n_cand, d) trust-region candidates,
-    ``normals`` (q, n_cand) Thompson normals, ``forcing`` (q, 1) uniforms of
-    the init-phase forcing."""
+    JAX package's): ``cands`` (n_cand, d) trust-region candidates (the
+    local pool included), ``forcing`` (q, 1) uniforms of the init-phase
+    forcing, and ``sampler``, the Thompson sampler's (``acq.Draws``)."""
 
     cands: Optional[Tensor] = None
-    normals: Optional[Tensor] = None
     forcing: Optional[Tensor] = None
+    sampler: A.Draws = A.Draws()
 
 
 def _check_n_cand(cfg: TurboConfig, n_cand: int):
@@ -181,14 +182,16 @@ def turbom_propose_batch(
 ) -> Tuple[TurboCarry, Tensor, List[int], List[int]]:
     """First half of a TuRBO-m iteration: the per-region fits (batched per
     capacity group, on ``[:cap]`` views, the non-largest regions on
-    ``[:cap_b]`` when given), candidates and Thompson values, and the global
-    allocation. The caller guarantees every fitted region's count fits its
-    view. ``draws`` (one ``Draws`` per region) replaces the generator's.
-    Returns (carries with the refitted hypers, x_sel (q, d) in the unit
-    cube, tr_idx, cand_idx): the allocation is read back to the host."""
-    _check_ported(cfg)
-    if cfg.fit_every > 1:
-        raise NotImplementedError("fit_every > 1 is not ported for TuRBO-m yet")
+    ``[:cap_b]`` when given), candidates and Thompson values
+    (``cfg.ts_sampler``), and the global allocation. With ``fit_every > 1``
+    each capacity group splits in two: the regions at their refit cadence
+    (``trust_region.refits_now``) go through one batched ``fit_gp``, the
+    others through one batched ``make_gp_state`` on their carried hypers,
+    so the launches per step do not grow with m. The caller guarantees
+    every fitted region's count fits its view. ``draws`` (one ``Draws`` per
+    region) replaces the generator's. Returns (carries with the refitted
+    hypers, x_sel (q, d) in the unit cube, tr_idx, cand_idx): the
+    allocation is read back to the host."""
     m = len(carries.n)
     n_loc, dim = carries.x_buf.shape[1:]
     q = cfg.batch_size
@@ -201,19 +204,25 @@ def turbom_propose_batch(
 
     states = {}
     raw = carries.raw
-    for members, c in _fit_groups(carries.n, in_search, cap, cap_b):
-        if not members:
-            continue
-        with record_function(f"turbom.fit[{len(members)}x{c}]"):
-            idx = torch.tensor(members, device=device)
-            counts = torch.tensor([carries.n[i] for i in members], device=device)
-            mask = torch.arange(c, device=device)[None, :] < counts[:, None]
-            warm = G.GPParams(*(a.index_select(0, idx) for a in carries.raw))
-            state = G.fit_gp(carries.x_buf.index_select(0, idx)[:, :c], carries.y_buf.index_select(0, idx)[:, :c],
-                             mask, config, warm_start=warm, generator=generator)
-        raw = G.GPParams(*(a.index_copy(0, idx, b) for a, b in zip(raw, state.raw)))
-        for j, i in enumerate(members):
-            states[i] = G.state_lane(state, j)
+    for group, c in _fit_groups(carries.n, in_search, cap, cap_b):
+        refit = [i for i in group if refits_now(carries.n[i], cfg)]
+        for members, fit in ((refit, True), ([i for i in group if i not in refit], False)):
+            if not members:
+                continue
+            with record_function(f"turbom.{'fit' if fit else 'state'}[{len(members)}x{c}]"):
+                idx = torch.tensor(members, device=device)
+                counts = torch.tensor([carries.n[i] for i in members], device=device)
+                mask = torch.arange(c, device=device)[None, :] < counts[:, None]
+                warm = G.GPParams(*(a.index_select(0, idx) for a in carries.raw))
+                x_buf = carries.x_buf.index_select(0, idx)[:, :c]
+                y_buf = carries.y_buf.index_select(0, idx)[:, :c]
+                if fit:
+                    state = G.fit_gp(x_buf, y_buf, mask, config, warm_start=warm, generator=generator)
+                else:
+                    state = G.make_gp_state(x_buf, y_buf, mask, warm, config)
+            raw = G.GPParams(*(a.index_copy(0, idx, b) for a, b in zip(raw, state.raw)))
+            for j, i in enumerate(members):
+                states[i] = G.state_lane(state, j)
 
     cands_all, values_all = [], []
     for i in range(m):
@@ -227,15 +236,10 @@ def turbom_propose_batch(
             state = states[i]
             cands = dr.cands
             if cands is None:
-                mask = torch.arange(n_loc, device=device) < carries.n[i]
-                best_idx = torch.argmin(torch.where(mask, carries.y_buf[i], torch.inf)).reshape(1)
-                ls = torch.broadcast_to(state.params["lengthscale"], (dim,))
-                cands = S.tr_candidates(
-                    carries.x_buf[i].index_select(0, best_idx)[0], carries.tr.length[i], ls, n_cand,
-                    generator, cfg.local_frac, cfg.sobol_scramble,
-                )
+                cands = candidates(carry_lane(carries, i), state, cfg, n_cand, generator)
             with record_function("turbom.thompson"):
-                values = A.thompson_samples(state, cands, q, config, cfg.ts_chunk, generator, dr.normals)
+                values = A.thompson_values(state, cands, q, config, cfg.ts_sampler, cfg.ts_chunk, cfg.ts_dtype,
+                                           cfg.rff_features, generator, dr.sampler)
         cands_all.append(cands.to(dtype))
         values_all.append(values)
     cands = torch.stack(cands_all)
@@ -276,6 +280,9 @@ def run_turbom(
     generator: torch.Generator,
     dtype=torch.float32,
     on_iteration: Optional[Callable[[int, Tensor], None]] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
 ) -> Tuple[TurboCarry, Tensor]:
     """TuRBO-m as a host loop of ``cfg.n_iters`` steps on the device of
     ``generator``. ``fn`` maps a (q, d) tensor in the box to a (q,) tensor.
@@ -283,17 +290,25 @@ def run_turbom(
     views ``fit_capacities`` gives.
     ``on_iteration(iteration, best)`` is called after each step with the
     incumbent as a device tensor (reading it is the caller's sync).
-    Returns (carries, incumbent trace (n_iters,))."""
+    ``checkpoint_path`` with ``checkpoint_every=k`` saves the carries and
+    the generator's state every k iterations; ``resume=True`` restores them
+    when the checkpoint exists and continues the uninterrupted run bit for
+    bit. Returns (carries, incumbent trace (n_iters,))."""
+    from turbojax_torch.checkpoint import RunCheckpointer
+
     device = generator.device
     dim = len(lb)
     _check_n_cand(cfg, cfg.n_candidates or S.n_candidates(dim))
     fail_tol = cfg.tr.resolved_fail_tol(dim, cfg.batch_size)
-    lb_t = torch.tensor(lb, dtype=dtype, device=device)
-    ub_t = torch.tensor(ub, dtype=dtype, device=device)
-    carries = stack_carries([make_turbo_carry(dim, final_capacity(cfg), cfg, config, generator, dtype, device)
-                             for _ in range(m)])
-    trace: List[Tensor] = []
-    for it in range(cfg.n_iters):
+    lb_t = torch.tensor(tuple(lb), dtype=dtype, device=device)
+    ub_t = torch.tensor(tuple(ub), dtype=dtype, device=device)
+    def carries_of(n_loc: int, gen: torch.Generator) -> TurboCarry:
+        return stack_carries([make_turbo_carry(dim, n_loc, cfg, config, gen, dtype, device) for _ in range(m)])
+
+    ckpt = RunCheckpointer(checkpoint_path, checkpoint_every, generator)
+    carries, trace = ckpt.start(resume, lambda: carries_of(0, torch.Generator(device=device)), lb_t,
+                                lambda: carries_of(final_capacity(cfg), generator))
+    for it in range(len(trace), cfg.n_iters):
         cap, cap_b = fit_capacities(carries.n, cfg)
         carries, x_sel, tr_idx, _ = turbom_propose_batch(carries, cfg, config, generator, cap, cap_b)
         y_sel = fn(T.from_unit_cube(x_sel, lb_t, ub_t)).to(dtype)
@@ -301,4 +316,5 @@ def run_turbom(
         trace.append(best)
         if on_iteration is not None:
             on_iteration(it, best)
+        ckpt.maybe_save(it + 1, carries, trace, last=it + 1 == cfg.n_iters)
     return carries, torch.stack(trace) if trace else torch.empty(0, dtype=dtype, device=device)
