@@ -17,28 +17,40 @@ non-zero and the final line is not printed:
    without noise at config 4's shapes, config 5's grid batches (16 × 2000²
    and the 64-row batch at the 512 rung), K(Z, Z) at
    m = 1, 63, 65 and 999 (ragged tiles of the symmetric schedule), ragged
-   cross matrices, d = 60 and clustered inputs; the TS covariance with
+   cross matrices, d = 60 and clustered inputs, the large-N crosses
+   (5000 × 16384 and 16384 × 1000 at d = 10); the TS covariance with
    jitter 0 and 1e-6 at the chunks the paths launch (one 1000-candidate
-   chunk, d = 60 with n = 2000 and 512, d = 10 with n = 1000 and 2048: n
-   split in four, the last split shorter), config 5's five-chunk batches,
+   chunk, d = 60 with n = 2000 and 512, d = 10 with n = 1000, 2048 and
+   16384), config 5's five-chunk batches,
    m = 1, 63, 65 and 999, n = 1 and n = 1750, and a trust region of side
    0.5**7 at ℓ = 0.01; and plain BO's shapes: K(Z, Z) at 60 points, d = 2
    (config 1) and four lanes of 112 points, d = 6 (config 2's L-BFGS
    restarts), their posterior cross matrices against 2000 candidates and the
-   one-row cross of an append. Tolerances: the kernel matrix rtol 2e-5 / atol 2e-6
-   in f32 and rtol 1e-12 in f64, the TS covariance 3e-5·outputscale in f32
-   (the TS ladder's first rung) and 1e-12·outputscale in f64. For each case
-   the kernel's and the plain version's f32 errors against the f64 plain
-   version are printed, and the kernel's may be no larger; K(Z, Z) and
-   every TS covariance must be bitwise
+   one-row cross of an append. Each case draws its inputs from its own
+   generator, seeded from its label. The float32 outputs are gated against
+   the plain version in float64 on the same inputs (the exact result): the
+   kernel matrix at rtol 2e-5 / atol 2e-6, the TS covariance at
+   3e-5·outputscale (the TS ladder's first rung); per case the kernel's
+   largest error may exceed the plain float32 version's by at most 2e-6
+   (·outputscale for the TS covariance). The float64 outputs are gated
+   against the plain float64 version at rtol 1e-12 and 1e-12·outputscale.
+   K(Z, Z) and every TS covariance must be bitwise
    symmetric, two calls bitwise equal, and in f32 the diagonal exact
    (K(Z, Z)'s is outputscale + noise; ts_cov's kernel term, with v = 0, is
-   outputscale). Then the kernel-matrix gradients (kernel forward, plain
+   outputscale). K(Z, Z) at the large-N shapes, (1, 16384², 10), the grid
+   fit's (15, 8192², 10) and (1, 46400², 10) (where a row offset times the
+   row length passes 2³¹), is checked whole for finiteness, run-to-run
+   equality and its diagonal, and gated in three blocks of 64 rows that
+   must equal their mirrored columns. Then the kernel-matrix gradients
+   (kernel forward, plain
    backward) against plain autograd at (16, 2048, 60) and (4, 112, 6), and a small GP
    problem on the card (float64, through the kernels) against the same
    problem on the CPU (the plain versions);
 3. ``turbojax_torch.kernel_bench``: both kernels at the shapes the paths
-   launch, each against its plain version (CUDA events) with its device
+   launch (with the large-N shapes: K(X, X) at 16384 points, the grid's
+   15 and the L-BFGS fit's 4 lanes at 8192, the 5000 × 16384 pathwise
+   cross, a 16384 × 1000 posterior chunk, the TS chunk at n = 16384), each
+   against its plain version (CUDA events) with its device
    time (torch.profiler), its bound and share and, for ts_cov, the time of
    ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
    2048 buffer, 5000 candidates, EI, Thompson q = 10 in chunks of 1000)
@@ -65,20 +77,38 @@ non-zero and the final line is not printed:
    ``ts_dtype="float64"`` (the f64 Thompson lane: the f64 instantiations of
    both kernels must be launched); (b) config 4 with ``ts_sampler="rff"``
    and with ``"pathwise"``; (c) config 5 with ``"pathwise"`` at full width
-   (m = 5, d = 60, 5000 candidates per region), 1000 evaluations; (d)
-   config 5 with ``local_frac=0.3`` and with ``fit_every=2``, 600
-   evaluations each; (e) config 4 through ``run_turbo1`` killed from
+   (m = 5, d = 60, 5000 candidates per region), 600 evaluations; (d)
+   config 5 with ``local_frac=0.3`` and with ``fit_every=2``, 400
+   evaluations each (depths cut to make room for phase 9); (e) config 4 through ``run_turbo1`` killed from
    ``on_iteration`` at iteration 40 and resumed from its checkpoint (under
    ``build/chip_smoke/``): the incumbent trace must equal an uninterrupted
    run's bit for bit; and an ask/tell ``Optimizer`` at config 4's sizes
    saved after five tells and restored into a fresh one must ask what the
-   saved one asks next.
+   saved one asks next;
+9. large-N plain BO at d = 10 and full width (5000 candidates, q = 10),
+   ``turbojax_torch.bench_large_n`` and ``bo_distributed``: (a) at N = 4096,
+   8192 and 16384, ``make_gp_state``, the posterior in chunks of 1000 and
+   auto-chunked, the exact Thompson selection (q = 10, chunks of 1000: the
+   TS covariance at n = N), the pathwise paths, 5 Adam steps and the grid
+   fit in the branch ``gp.grid_rows_batched`` picks, each the median of
+   three warm synchronized calls with its peak device memory; (b) two loops
+   through ``run_bo_distributed`` on the objective of
+   ``turbojax_torch/examples/run_distributed_bo.py``: EI from 8192 initial
+   points, 4 iterations, the default L-BFGS fit every second iteration; and
+   pathwise Thompson sampling from 16384 points, 3 iterations, a 5-step
+   Adam fit every iteration; (c) the checkpoint the EI loop saved after
+   iteration 2 (what a run killed in iteration 3 leaves) resumed: iteration
+   3 is off the fit cadence, so the resumed run refactorizes at the
+   restored hypers, and its trace and history must equal the uninterrupted
+   run's bit for bit.
 
-In phases 4 to 8 the launch counters are set to 0 just before each run and
+In phases 4 to 9 the launch counters are set to 0 just before each run and
 read just after; a run fails unless the kernels of its path were launched
 (the kernel matrix on every path; the TS covariance wherever the exact
 Thompson sampler runs: configs 3, 4 and 5 and the TuRBO ask/tell runs, not
-the RFF and pathwise samplers, which build no candidate covariance) and the
+the RFF and pathwise samplers, which build no candidate covariance; in
+phase 9 the kernel matrix in each loop and the TS covariance in the
+components) and the
 result is finite, its incumbent trace non-increasing, and its best value
 better than the initial design's. Phase 3 also times both kernels at the f64
 lane's shapes and the pathwise cross (5000 × 2000 at d = 60, 1000 × 1000 at
@@ -89,9 +119,11 @@ and, last, ``{"ok": true, "device": ...}``.
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
+import zlib
 
 F32_RTOL, F32_ATOL = 2e-5, 2e-6  # as the JAX package's Pallas parity tests
 F64_RTOL = 1e-12
@@ -129,14 +161,26 @@ def phase1_build(CK):
            "libraries": {k: v.split("/build/")[-1] for k, v in paths.items()}})
 
 
-def _cases(torch, gen):
+def _case_generator(torch, label):
+    """Each case's own generator, seeded from its label: adding or moving a
+    case changes no other case's inputs."""
+    return torch.Generator(device="cuda").manual_seed(zlib.crc32(label.encode()))
+
+
+def _cases(torch):
     """(label, z1, z2, outputscale, noise) in float64 on the card; z1 is z2
     for K(Z, Z). Inputs are scaled by 1/ℓ and centered, as gp._kernel_matrix
-    hands them to the kernel."""
+    hands them to the kernel. Each case draws from its own generator."""
     dev = "cuda"
+    out = []
 
-    def unit(n, d):
-        return torch.rand((n, d), generator=gen, device=dev, dtype=torch.float64)
+    def case(label):
+        gen = _case_generator(torch, label)
+
+        def unit(*shape):
+            return torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+
+        return label, unit
 
     def centered(z1, z2=None):
         if z2 is None:
@@ -149,59 +193,77 @@ def _cases(torch, gen):
 
     one = torch.tensor(1.3, dtype=torch.float64, device=dev)
     nz = torch.tensor(1e-3, dtype=torch.float64, device=dev)
-    out = []
     # the 15-row grid fit: ℓ ∈ {0.1, 0.25, 0.5, 1.0, 1.9} × noise ∈ {2e-4, 1e-3, 1e-2}
-    x = unit(1000, 10)
+    label, unit = case("grid_15x1000x1000_d10")
     ls = rows([v for v in (0.1, 0.25, 0.5, 1.0, 1.9) for _ in range(3)])
-    z = centered(x[None] / ls[:, None, None])
-    out.append(("grid_15x1000x1000_d10", z, z, torch.ones(15, dtype=torch.float64, device=dev),
-                rows([2e-4, 1e-3, 1e-2] * 5)))
+    z = centered(unit(1000, 10)[None] / ls[:, None, None])
+    out.append((label, z, z, torch.ones(15, dtype=torch.float64, device=dev), rows([2e-4, 1e-3, 1e-2] * 5)))
     ell = math.sqrt(10 / 24)  # typical d² ≈ 4: kernel values neither 0 nor 1
     ell60 = math.sqrt(60 / 24)
     # config 5's grid batches: 16 rows at the 2000 rung, 4 regions × 16 rows at the 512 rung
+    label, unit = case("grid_16x2000x2000_d60")
     z = centered(unit(2000, 60)[None] / (ell60 * rows([0.5, 0.8, 1.0, 1.6] * 4)[:, None, None]))
-    out.append(("grid_16x2000x2000_d60", z, z, rows([1.3, 0.7] * 8), rows([1e-2, 1e-3] * 8)))
-    z = centered(torch.rand((64, 512, 60), generator=gen, device=dev, dtype=torch.float64) / ell60)
-    out.append(("grid_64x512x512_d60", z, z, rows([1.3, 0.7, 2.0, 1.0] * 16), rows([1e-2, 1e-3] * 32)))
+    out.append((label, z, z, rows([1.3, 0.7] * 8), rows([1e-2, 1e-3] * 8)))
+    label, unit = case("grid_64x512x512_d60")
+    z = centered(unit(64, 512, 60) / ell60)
+    out.append((label, z, z, rows([1.3, 0.7, 2.0, 1.0] * 16), rows([1e-2, 1e-3] * 32)))
     for m in (1, 63, 65, 999):
+        label, unit = case(f"kzz_{m}_d60")
         zc = centered(unit(m, 60) / ell60)
-        out.append((f"kzz_{m}_d60", zc, zc, one, nz))
+        out.append((label, zc, zc, one, nz))
+    label, unit = case("cross_1000x1000_d10")
     z1, z2 = centered(unit(1000, 10) / ell, unit(1000, 10) / ell)
-    out.append(("cross_1000x1000_d10", z1, z2, one, nz))
+    out.append((label, z1, z2, one, nz))
+    label, unit = case("kxx_1000_d10")
     zc = centered(unit(1000, 10) / ell)
-    out.append(("kxx_1000_d10", zc, zc, one, nz))
+    out.append((label, zc, zc, one, nz))
+    label, unit = case("bench_cross_2048x5000_d10")
     xb = torch.cat([unit(2000, 10), torch.zeros(48, 10, dtype=torch.float64, device=dev)])
     z1, z2 = centered(xb / ell, unit(5000, 10) / ell)
-    out.append(("bench_cross_2048x5000_d10", z1, z2, one, nz))
+    out.append((label, z1, z2, one, nz))
     for n, m in ((1, 1), (130, 257), (999, 1000)):
+        label, unit = case(f"ragged_{n}x{m}_d10")
         z1, z2 = centered(unit(n, 10) / ell, unit(m, 10) / ell)
-        out.append((f"ragged_{n}x{m}_d10", z1, z2, one, nz))
+        out.append((label, z1, z2, one, nz))
+    label, unit = case("ts_cross_2000x1000_d60")
     z1, z2 = centered(unit(2000, 60) / ell60, unit(1000, 60) / ell60)
-    out.append(("ts_cross_2000x1000_d60", z1, z2, one, nz))
+    out.append((label, z1, z2, one, nz))
     # plain BO: config 1 (60 points, d = 2) and config 2 (112 points, d = 6, four L-BFGS lanes)
     for tag, n, d, lanes in (("bo1", 60, 2, 1), ("bo2", 112, 6, 4)):
         ell_d = math.sqrt(d / 24)
         if lanes == 1:
+            label, unit = case(f"{tag}_kzz_{n}_d{d}")
             zc = centered(unit(n, d) / ell_d)
-            out.append((f"{tag}_kzz_{n}_d{d}", zc, zc, one, nz))
+            out.append((label, zc, zc, one, nz))
         else:
+            label, unit = case(f"{tag}_lanes{lanes}_kzz_{n}_d{d}")
             zc = centered(unit(n, d)[None] / (ell_d * rows([0.5, 0.8, 1.0, 1.6])[:, None, None]))
-            out.append((f"{tag}_lanes{lanes}_kzz_{n}_d{d}", zc, zc, rows([1.3, 0.7, 2.0, 1.0]), rows([1e-2, 1e-3, 1e-4, 0.1])))
+            out.append((label, zc, zc, rows([1.3, 0.7, 2.0, 1.0]), rows([1e-2, 1e-3, 1e-4, 0.1])))
+        label, unit = case(f"{tag}_cross_{n}x2000_d{d}")
         z1, z2 = centered(unit(n, d) / ell_d, unit(2000, d) / ell_d)
-        out.append((f"{tag}_cross_{n}x2000_d{d}", z1, z2, one, nz))
+        out.append((label, z1, z2, one, nz))
+        label, unit = case(f"{tag}_append_1x{n}_d{d}")
         z1, z2 = centered(unit(1, d) / ell_d, unit(n, d) / ell_d)
-        out.append((f"{tag}_append_1x{n}_d{d}", z1, z2, one, nz))
+        out.append((label, z1, z2, one, nz))
     # a trust region of side 0.5**7 around one point, at a small fitted ℓ
+    label, unit = case("clustered_1000x1000_d10")
     c0 = unit(1, 10)
     x1 = c0 + 0.5**7 * (unit(1000, 10) - 0.5)
     x2 = c0 + 0.5**7 * (unit(1000, 10) - 0.5)
     z1, z2 = centered(x1 / 0.01, x2 / 0.01)
-    out.append(("clustered_1000x1000_d10", z1, z2, one, nz))
-    # the pathwise sampler's cross k(x*, X): 5000 candidates against a 2000-row buffer (last, so that the
-    # cases above keep their inputs)
+    out.append((label, z1, z2, one, nz))
+    # the pathwise sampler's cross k(x*, X): 5000 candidates against a 2000-row buffer
+    label, unit = case("pathwise_cross_5000x2000_d60")
     xb = torch.cat([unit(1950, 60), torch.zeros(50, 60, dtype=torch.float64, device=dev)])
     z1, z2 = centered(unit(5000, 60) / ell60, xb / ell60)
-    out.append(("pathwise_cross_5000x2000_d60", z1, z2, one, nz))
+    out.append((label, z1, z2, one, nz))
+    # large-N plain BO (d = 10): the pathwise cross against 16384 rows and a posterior chunk
+    label, unit = case("large_cross_5000x16384_d10")
+    z1, z2 = centered(unit(5000, 10) / ell, unit(16384, 10) / ell)
+    out.append((label, z1, z2, one, nz))
+    label, unit = case("large_post_16384x1000_d10")
+    z1, z2 = centered(unit(16384, 10) / ell, unit(1000, 10) / ell)
+    out.append((label, z1, z2, one, nz))
     return out
 
 
@@ -216,17 +278,39 @@ def _exact_diagonal(torch, got, s, noise, add_noise, label):
     _require(bool((diag == want).all()), f"{label}: the diagonal is not outputscale + noise exactly")
 
 
+def _gate_kernel_matrix(torch, what, got, ref, exact):
+    """One kernel-matrix output against the exact result, the plain version
+    in float64 on the same (rounded) inputs: finite, and in float32 within
+    rtol 2e-5 / atol 2e-6 of it, in float64 within rtol 1e-12. Returns the
+    kernel's and the plain version's (``ref``, in the kernel's dtype) largest
+    absolute errors against it."""
+    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got.double() - exact).abs()
+    tol = F32_ATOL + F32_RTOL * exact.abs() if got.dtype == torch.float32 else F64_RTOL * exact.abs()
+    bad = err > tol
+    _require(not bool(bad.any()), f"{what}: {int(bad.sum())} entries out of tolerance against the f64 plain "
+                                  f"version, max abs err {float(err.max()):.3e}")
+    return float(err.max()), float((ref.double() - exact).abs().max())
+
+
+def _require_no_worse(kernel, what, versus_f64, atol):
+    _require(versus_f64["kernel"] <= versus_f64["plain"] + atol,
+             f"{kernel} {what}: f32 error against the f64 plain version {versus_f64['kernel']:.3e} above the plain "
+             f"f32 version's {versus_f64['plain']:.3e} + {atol:.0e}")
+
+
 def phase2_parity(torch, CK):
-    gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     n_checked = 0
-    for label, z1, z2, os_, noise in _cases(torch, gen):
+    for label, z1, z2, os_, noise in _cases(torch):
         same = z2 is z1
         versus_f64 = {"kernel": 0.0, "plain": 0.0}
         for dtype in (torch.float32, torch.float64):
             a = z1.to(dtype).contiguous()
             b = a if same else z2.to(dtype).contiguous()
             s, nz = os_.to(dtype), noise.to(dtype)
+            a64 = a.double()
+            b64 = a64 if same else b.double()
             for name in CK.KERNEL_IDS:
                 for add_noise in (False, True):
                     what = f"{label} {dtype} {name} noise={add_noise}"
@@ -234,34 +318,26 @@ def phase2_parity(torch, CK):
                     again = CK.kernel_matrix(a, b, s, nz, name, add_noise)
                     torch.cuda.synchronize()
                     ref = CK.kernel_matrix_reference(a, b, s, nz, name, add_noise)
-                    err = (got - ref).abs()
-                    if dtype == torch.float32:
-                        bad = err > F32_ATOL + F32_RTOL * ref.abs()
-                    else:
-                        bad = err > F64_RTOL * ref.abs()
-                    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-                    _require(not bool(bad.any()), f"{what}: {int(bad.sum())} entries out of tolerance, "
-                                                  f"max abs err {float(err.max()):.3e}")
+                    exact = ref if dtype == torch.float64 else CK.kernel_matrix_reference(
+                        a64, b64, s.double(), nz.double(), name, add_noise)
+                    err, plain_err = _gate_kernel_matrix(torch, what, got, ref, exact)
                     _require(torch.equal(got, again), f"{what}: two calls differ")
                     if same:
                         _require(torch.equal(got, got.mT), f"{what}: K(Z, Z) is not bitwise symmetric")
                         if dtype == torch.float32:
                             _exact_diagonal(torch, got, s, nz, add_noise, what)
-                    worst[dtype] = max(worst[dtype], float(err.max()))
+                    worst[dtype] = max(worst[dtype], err)
                     n_checked += 1
                     if dtype == torch.float32:
-                        a64 = a.double()
-                        exact = CK.kernel_matrix_reference(a64, a64 if same else b.double(), s.double(), nz.double(),
-                                                           name, add_noise)
-                        versus_f64["kernel"] = max(versus_f64["kernel"], float((got.double() - exact).abs().max()))
-                        versus_f64["plain"] = max(versus_f64["plain"], float((ref.double() - exact).abs().max()))
-                        del exact
-        _require(versus_f64["kernel"] <= versus_f64["plain"], f"kernel_matrix {label}: f32 error against the f64 "
-                 f"plain version {versus_f64['kernel']:.3e} above the plain f32 version's {versus_f64['plain']:.3e}")
+                        versus_f64["kernel"] = max(versus_f64["kernel"], err)
+                        versus_f64["plain"] = max(versus_f64["plain"], plain_err)
+                    del got, again, ref, exact
+        _require_no_worse("kernel_matrix", label, versus_f64, F32_ATOL)
         _emit({"phase": 2, "kernel": "kernel_matrix", "case": label, "shape": [list(z1.shape), list(z2.shape)],
                "ok": True, "f32_err_vs_f64_plain": versus_f64})
+    n_checked += _large_kernel_matrix_parity(torch, CK, worst)
     _emit({"phase": 2, "kernel": "kernel_matrix", "comparisons": n_checked,
-           "max_abs_err_f32": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
+           "max_abs_err_f32_vs_f64_plain": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
            "tolerance_f32": [F32_RTOL, F32_ATOL], "tolerance_f64_rtol": F64_RTOL})
     ts_worst = _ts_cov_parity(torch, CK)
     grad_err = _kernel_matrix_grad_parity(torch, CK)
@@ -270,16 +346,94 @@ def phase2_parity(torch, CK):
     return worst[torch.float32], ts_worst
 
 
-def _ts_cases(torch, gen):
+# (label, batch, n): K(Z, Z) at d = 10 too large to compare whole
+LARGE_KZZ_CASES = (("large_kxx_16384_d10", 1, 16384), ("large_grid15_8192_d10", 15, 8192),
+                   ("index_kxx_46400_d10", 1, 46400))
+
+
+def _large_kernel_matrix_parity(torch, CK, worst):
+    """K(Z, Z) at the large-N shapes, too large to hold beside their plain
+    versions whole: (1, 16384², 10), the grid fit's (15, 8192², 10) and
+    (1, 46400², 10), where a row offset times the row length passes 2³¹ (the
+    kernel's store offsets are 64-bit). The whole output must be finite,
+    two calls bitwise equal and, in f32, the diagonal exact; three blocks
+    of 64 rows (the first, the middle and the last) are gated against the
+    plain version on those rows as the cases above are, and must equal
+    their mirrored columns bitwise. Returns the comparisons made."""
+    n_checked = 0
+    ell = math.sqrt(10 / 24)
+    for label, batch, n in LARGE_KZZ_CASES:
+        gen = _case_generator(torch, label)
+        z = torch.rand((batch, n, 10), generator=gen, device="cuda", dtype=torch.float64)
+        ls = torch.tensor([v for v in (0.1, 0.25, 0.5, 1.0, 1.9) for _ in range(3)][:batch] if batch > 1 else [ell],
+                          dtype=torch.float64, device="cuda")
+        z = z / ls[:, None, None]
+        z = z - z.mean(dim=-2, keepdim=True)
+        s64 = torch.full((batch,), 1.3, dtype=torch.float64, device="cuda")
+        nz64 = torch.tensor([2e-4, 1e-3, 1e-2] * 5, dtype=torch.float64, device="cuda")[:batch]
+        if batch == 1:
+            z, s64, nz64 = z[0], s64[0], nz64[0]
+        blocks = [range(0, 64), range(n // 2, n // 2 + 64), range(n - 64, n)]
+        versus_f64 = {"kernel": 0.0, "plain": 0.0}
+        for dtype in (torch.float32, torch.float64):
+            a, s, nz = z.to(dtype).contiguous(), s64.to(dtype), nz64.to(dtype)
+            a64 = a.double()
+            for name in CK.KERNEL_IDS:
+                for add_noise in (False, True):
+                    what = f"{label} {dtype} {name} noise={add_noise}"
+                    got = CK.kernel_matrix(a, a, s, nz, name, add_noise)
+                    again = CK.kernel_matrix(a, a, s, nz, name, add_noise)
+                    torch.cuda.synchronize()
+                    _require(torch.equal(got, again), f"{what}: two calls differ")
+                    del again
+                    if dtype == torch.float32:
+                        _exact_diagonal(torch, got, s, nz, add_noise, what)
+                    for rows in blocks:
+                        r = torch.tensor(list(rows), device="cuda")
+                        got_rows = got.index_select(-2, r)
+                        _require(torch.equal(got_rows, got.index_select(-1, r).mT),
+                                 f"{what}: rows {rows.start}-{rows.stop} differ from their mirrored columns")
+                        ref, exact = (_rows_reference(torch, CK, x, r, sc, noise, name, add_noise)
+                                      for x, sc, noise in ((a, s, nz), (a64, s.double(), nz.double())))
+                        err, plain_err = _gate_kernel_matrix(torch, f"{what} rows {rows.start}-{rows.stop}",
+                                                             got_rows, ref, exact)
+                        worst[dtype] = max(worst[dtype], err)
+                        n_checked += 1
+                        if dtype == torch.float32:
+                            versus_f64["kernel"] = max(versus_f64["kernel"], err)
+                            versus_f64["plain"] = max(versus_f64["plain"], plain_err)
+                    del got
+        _require_no_worse("kernel_matrix", label, versus_f64, F32_ATOL)
+        _emit({"phase": 2, "kernel": "kernel_matrix", "case": label, "shape": list(z.shape), "rows_checked": 192,
+               "ok": True, "f32_err_vs_f64_plain": versus_f64})
+        del z, a, a64
+        torch.cuda.empty_cache()
+    return n_checked
+
+
+def _rows_reference(torch, CK, z, rows, s, noise, name, add_noise):
+    """The plain version's rows ``rows`` of K(Z, Z). Where a row meets its
+    own column the entry is outputscale (+ noise) exactly, as the plain
+    K(Z, Z) and the kernel give it: the plain cross of the rows with Z
+    would put the expansion's round-off into d² = 0 there, which Matérn-1/2
+    turns into ~3e-8."""
+    k = CK.kernel_matrix_reference(z.index_select(-2, rows).contiguous(), z, s, noise, name, False)
+    diag = s + noise if add_noise else s
+    k[..., torch.arange(len(rows), device=k.device), rows] = diag.reshape(-1, 1) if k.dim() == 3 else diag
+    return k
+
+
+def _ts_cases(torch):
     """(label, zs (B, m, d), v (B, n, m), outputscale (B,)) in float64 on the
     card: candidates scaled by 1/ℓ and centered as gp._scale_center hands
     them over, and v = L⁻¹K(X, zs) from a training set of n rows (noise
-    1e-2), so that vᵀv cancels most of k(zs, zs) as it does in the TS."""
+    1e-2), so that vᵀv cancels most of k(zs, zs) as it does in the TS. Each
+    case draws from its own generator."""
     from turbojax_torch import cuda_kernels as CK
 
     dev, f64 = "cuda", torch.float64
 
-    def chunk(m, n, d, ell, cluster=None):
+    def chunk(gen, m, n, d, ell, cluster=None):
         x = torch.rand((n, d), generator=gen, device=dev, dtype=f64)
         xs = torch.rand((m, d), generator=gen, device=dev, dtype=f64)
         if cluster is not None:
@@ -294,7 +448,10 @@ def _ts_cases(torch, gen):
         v = torch.linalg.solve_triangular(torch.linalg.cholesky(k_xx), k_xs, upper=False)
         return zs, v
 
-    def batch(label, parts, scales):
+    def batch(label, chunks, scales, **kw):
+        """``chunks`` (m, n, d, ℓ) chunks from the case's own generator."""
+        gen = _case_generator(torch, label)
+        parts = [chunk(gen, *spec, **kw) for spec in chunks]
         zs = torch.stack([p[0] for p in parts])
         v = torch.stack([p[1] for p in parts])
         return label, zs.contiguous(), v.contiguous(), torch.tensor(scales, dtype=f64, device=dev)
@@ -302,29 +459,33 @@ def _ts_cases(torch, gen):
     ell10, ell60 = math.sqrt(10 / 24), math.sqrt(60 / 24)
     scales5 = [1.3, 0.7, 2.0, 1.0, 0.3]
     return [
-        batch("path_1000_n2000_d60", [chunk(1000, 2000, 60, ell60)], [1.3]),
-        batch("path_1000_n512_d60", [chunk(1000, 512, 60, ell60)], [0.7]),
-        batch("path_1000_n1000_d10", [chunk(1000, 1000, 10, ell10)], [1.3]),
-        batch("bench_1000_n2048_d10", [chunk(1000, 2048, 10, ell10)], [1.3]),
-        batch("tr5_chunk_5x1000_n2048_d60", [chunk(1000, 2048, 60, ell60) for _ in range(5)], scales5),
-        batch("tr5_chunk_5x1000_n512_d60", [chunk(1000, 512, 60, ell60) for _ in range(5)], scales5),
-        batch("m1_n600_d60", [chunk(1, 600, 60, ell60)], [1.3]),
-        batch("m63_n300_d60", [chunk(63, 300, 60, ell60)], [1.3]),
-        batch("m65_n700_d60", [chunk(65, 700, 60, ell60)], [1.3]),
-        batch("m999_n1750_d60", [chunk(999, 1750, 60, ell60)], [1.3]),
-        batch("m1000_n1_d10", [chunk(1000, 1, 10, ell10)], [1.3]),
-        batch("clustered_1000_n1000_d60", [chunk(1000, 1000, 60, 0.01, cluster=0.5**7)], [1.3]),
+        batch("path_1000_n2000_d60", [(1000, 2000, 60, ell60)], [1.3]),
+        batch("path_1000_n512_d60", [(1000, 512, 60, ell60)], [0.7]),
+        batch("path_1000_n1000_d10", [(1000, 1000, 10, ell10)], [1.3]),
+        batch("bench_1000_n2048_d10", [(1000, 2048, 10, ell10)], [1.3]),
+        batch("tr5_chunk_5x1000_n2048_d60", [(1000, 2048, 60, ell60)] * 5, scales5),
+        batch("tr5_chunk_5x1000_n512_d60", [(1000, 512, 60, ell60)] * 5, scales5),
+        batch("m1_n600_d60", [(1, 600, 60, ell60)], [1.3]),
+        batch("m63_n300_d60", [(63, 300, 60, ell60)], [1.3]),
+        batch("m65_n700_d60", [(65, 700, 60, ell60)], [1.3]),
+        batch("m999_n1750_d60", [(999, 1750, 60, ell60)], [1.3]),
+        batch("m1000_n1_d10", [(1000, 1, 10, ell10)], [1.3]),
+        batch("clustered_1000_n1000_d60", [(1000, 1000, 60, 0.01)], [1.3], cluster=0.5**7),
+        # large-N plain BO: the exact Thompson chunk against 16384 training rows
+        batch("large_1000_n16384_d10", [(1000, 16384, 10, ell10)], [1.3]),
     ]
 
 
 def _ts_cov_parity(torch, CK):
-    """The TS covariance kernel against its plain version on the same inputs.
-    Returns the largest float32 absolute error."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    """The TS covariance kernel against its plain version on the same inputs:
+    in float32 against the plain version in float64 at 3e-5·outputscale
+    (and no worse than the plain float32 version + 2e-6·outputscale), in
+    float64 against it at 1e-12·outputscale. Returns the largest float32
+    absolute error against the float64 plain version."""
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     worst_abs = 0.0
     n_checked = 0
-    for label, zs64, v64, s64 in _ts_cases(torch, gen):
+    for label, zs64, v64, s64 in _ts_cases(torch):
         scale = s64[:, None, None]
         versus_f64 = {"kernel": 0.0, "plain": 0.0}
         plan = CK.ts_cov_plan(*zs64.shape[:2], v64.shape[1], zs64.shape[2])
@@ -338,30 +499,31 @@ def _ts_cov_parity(torch, CK):
                     again = CK.ts_cov(zs, v, s, jitter, name)
                     torch.cuda.synchronize()
                     ref = CK.ts_cov_reference(zs, v, s, jitter, name)
-                    err = float(((got - ref).abs() / scale).max())
+                    exact = ref if dtype == torch.float64 else CK.ts_cov_reference(
+                        zs.double(), v.double(), s.double(), jitter, name)
+                    err = float(((got.double() - exact).abs() / scale).max())
                     _require(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-                    _require(err <= tol, f"{what}: max err {err:.3e}·outputscale > {tol:.0e}")
+                    _require(err <= tol, f"{what}: max err {err:.3e}·outputscale against the f64 plain version "
+                                         f"> {tol:.0e}")
                     _require(torch.equal(got, again), f"{what}: two calls differ")
                     _require(torch.equal(got, got.mT), f"{what}: not bitwise symmetric")
                     worst[dtype] = max(worst[dtype], err)
                     n_checked += 1
                     if dtype == torch.float32:
-                        worst_abs = max(worst_abs, float((got - ref).abs().max()))
-                        exact = CK.ts_cov_reference(zs.double(), v.double(), s.double(), jitter, name)
-                        versus_f64["kernel"] = max(versus_f64["kernel"], float(((got.double() - exact).abs() / scale).max()))
+                        worst_abs = max(worst_abs, float((got.double() - exact).abs().max()))
+                        versus_f64["kernel"] = max(versus_f64["kernel"], err)
                         versus_f64["plain"] = max(versus_f64["plain"], float(((ref.double() - exact).abs() / scale).max()))
             if dtype == torch.float32:  # the kernel term alone: its diagonal is outputscale exactly
                 for name in CK.KERNEL_IDS:
                     got = CK.ts_cov(zs, torch.zeros_like(v), s, 0.0, name)
                     _exact_diagonal(torch, got, s, None, False, f"ts_cov {label} {name} kernel term")
-        _require(versus_f64["kernel"] <= versus_f64["plain"], f"ts_cov {label}: f32 error against the f64 plain "
-                 f"version {versus_f64['kernel']:.3e} above the plain f32 version's {versus_f64['plain']:.3e}")
+        _require_no_worse("ts_cov", label, versus_f64, F32_ATOL)
         _emit({"phase": 2, "kernel": "ts_cov", "case": label, "zs": list(zs64.shape), "v": list(v64.shape),
                "splits": plan.splits, "chunk": plan.chunk, "ok": True,
                "f32_err_vs_f64_plain_per_outputscale": versus_f64})
     _emit({"phase": 2, "kernel": "ts_cov", "comparisons": n_checked,
            "max_err_f32_per_outputscale": worst[torch.float32], "max_err_f64_per_outputscale": worst[torch.float64],
-           "max_abs_err_f32": worst_abs, "tolerance_f32": TS_F32_ATOL, "tolerance_f64": TS_F64_ATOL})
+           "max_abs_err_f32_vs_f64_plain": worst_abs, "tolerance_f32": TS_F32_ATOL, "tolerance_f64": TS_F64_ATOL})
     return worst_abs
 
 
@@ -430,7 +592,8 @@ def phase3_timings(smi):
         _require(line["max_abs_diff"] <= 1e-4, f"append and refactorization disagree: {line}")
         _emit({"phase": 3, "chol": "append_against_refactor", **line})
     _emit({"phase": 3, **KB.lbfgs_fit(smi)})
-    return lines[KB.KM_HEADLINE], lines[KB.TS_HEADLINE], lines[KB.KM_F64_HEADLINE], lines[KB.TS_F64_HEADLINE]
+    return ((lines[KB.KM_HEADLINE], lines[KB.KM_F64_HEADLINE], lines[KB.KM_LARGE_HEADLINE]),
+            (lines[KB.TS_HEADLINE], lines[KB.TS_F64_HEADLINE], lines[KB.TS_LARGE_HEADLINE]))
 
 
 def _counted(torch, CK, run):
@@ -625,6 +788,106 @@ def phase8_kill_and_resume(torch, CK, smi, kill_at=40, every=10):
     return launches
 
 
+LARGE_N_DIM, LARGE_N_CAND, LARGE_N_Q = 10, 5000, 10
+LARGE_N_EI, LARGE_N_TS = 8192, 16384  # the initial designs of phase 9's two loops
+
+
+def _large_n_loop(torch, CK, smi, label, n_init, iterations, acq, config, **kw):
+    """One ``run_bo_distributed`` loop on the port's example objective (d =
+    10, 5000 candidates, q = 10) at seed 0, counted: it must launch the
+    kernel matrix, keep a finite, non-increasing trace and improve on its
+    initial design's best point."""
+    from turbojax_torch.bo import BOConfig
+    from turbojax_torch.bo_distributed import run_bo_distributed
+    from turbojax_torch.examples.run_distributed_bo import objective
+    from turbojax_torch.runlog import RunLog
+
+    bo = BOConfig(n_init=n_init, max_evals=n_init + iterations * LARGE_N_Q, batch_size=LARGE_N_Q, acq=acq,
+                  n_candidates=LARGE_N_CAND, **kw.pop("bo", {}))
+    log = RunLog()
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return run_bo_distributed(objective, [0.0] * LARGE_N_DIM, [1.0] * LARGE_N_DIM, bo, config, runlog=log,
+                                  generator=gen, **kw)
+
+    res, wall, launches = _counted(torch, CK, run)
+    trace = res.incumbent_trace.tolist()
+    init_best = float(res.y_hist[:n_init].min())
+    _require(launches["kernel_matrix"] > 0, f"{label} ran without launching the kernel_matrix kernel")
+    _require(len(trace) == iterations and all(map(math.isfinite, trace)), f"{label}: incumbent trace {trace}")
+    _require(all(b <= a for a, b in zip(trace, trace[1:])), f"{label}: the incumbent trace rises")
+    _require(bool(torch.isfinite(res.y_hist).all()) and res.y_hist.shape == (n_init + iterations * LARGE_N_Q,),
+             f"{label}: the history is not finite or not of its size")
+    _require(float(res.best_y) == trace[-1] < init_best,
+             f"{label}: best_y {float(res.best_y)} does not improve on the initial design {init_best}")
+    _emit({"phase": 9, "loop": label, "acq": acq, "n_init": n_init, "iterations": iterations, "wall_s": wall,
+           "iter_s": [r["iter_s"] for r in log.records], "n": [r["n"] for r in log.records],
+           "route": sorted({r["route"] for r in log.records}), "best_y": trace[-1], "init_design_best": init_best,
+           "trace": trace, "launches": launches, "card": smi})
+    return res, launches
+
+
+def phase9_large_n(torch, CK, smi):
+    """Large-N plain BO at d = 10 and full width (5000 candidates, q = 10):
+    (a) the components at N = 4096, 8192 and 16384 (bench_large_n), (b) two
+    loops through ``run_bo_distributed``: EI at N = 8192 with the default
+    L-BFGS fit every second iteration, and pathwise Thompson sampling at
+    N = 16384 with a 5-step Adam fit every iteration, (c) the checkpoint the
+    EI loop saved after iteration 2 (what a run killed in iteration 3
+    leaves; phase 8 kills a run for real) resumed at iteration 3, off the
+    fit cadence: the resumed run refactorizes at the restored hypers (the
+    stale-factor trap after a resume), and its trace and history must equal
+    the uninterrupted run's bit for bit. A second full L-BFGS run to kill
+    would cost a minute of the smoke's time for nothing more."""
+    import dataclasses
+
+    from turbojax_torch import bench_large_n as BL
+    from turbojax_torch import checkpoint as CKPT
+    from turbojax_torch.config import GPConfig
+
+    (rows, wall, launches_a) = _counted(torch, CK, lambda: BL.component_rows(
+        smi, emit=lambda row: _emit({"phase": 9, "components": True, **row}), check=_require))
+    _require(launches_a["ts_cov"] > 0, "large-N components ran without launching the ts_cov kernel")
+    _emit({"phase": 9, "components_wall_s": wall, "launches": launches_a, "card": smi})
+
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path, killed = (os.path.join(ckpt_dir, name) for name in ("large_n_ei", "large_n_ei_killed"))
+    for base in (path, killed):
+        for suffix in (".npz", ".meta.json"):
+            if os.path.exists(base + suffix):
+                os.remove(base + suffix)
+    kill_at = 3  # 3 % fit_every != 0: the resume takes the refactor branch
+
+    def keep_killed(it, best):
+        """After iteration ``kill_at`` ran and before its save, the checkpoint
+        holds the iterations before it: what a run killed in that iteration
+        leaves behind."""
+        if it == kill_at:
+            for suffix in (".npz", ".meta.json"):
+                shutil.copyfile(path + suffix, killed + suffix)
+
+    lbfgs = GPConfig(kernel="matern52")
+    ei_kw = dict(bo=dict(fit_every=2))
+    ei_label = f"ei_n{LARGE_N_EI}_lbfgs"
+    ei, launches_ei = _large_n_loop(torch, CK, smi, ei_label, LARGE_N_EI, 4, "ei", lbfgs, checkpoint_path=path,
+                                    checkpoint_every=1, on_iteration=keep_killed, **ei_kw)
+    adam5 = dataclasses.replace(lbfgs, fit_optimizer="adam", fit_maxiter=5, fit_restarts=1)
+    ts_label = f"ts_pathwise_n{LARGE_N_TS}_adam5"
+    _, launches_ts = _large_n_loop(torch, CK, smi, ts_label, LARGE_N_TS, 3, "ts", adam5)
+
+    _require(CKPT.load_meta(killed)["it"] == kill_at, "large-N kill_and_resume: no checkpoint at the kill")
+    resumed, launches_resumed = _large_n_loop(torch, CK, smi, ei_label + "_resumed", LARGE_N_EI, 4, "ei", lbfgs,
+                                              checkpoint_path=killed, checkpoint_every=1, resume=True, **ei_kw)
+    _require(torch.equal(resumed.incumbent_trace, ei.incumbent_trace) and torch.equal(resumed.y_hist, ei.y_hist),
+             "large-N kill_and_resume: the resumed run differs from the uninterrupted one")
+    _emit({"phase": 9, "kill_and_resume": ei_label, "killed_at": kill_at, "traces_equal": True,
+           "histories_equal": True, "card": smi})
+    return {"large_n_components": launches_a, f"large_n_{ei_label}": launches_ei, f"large_n_{ts_label}": launches_ts,
+            f"large_n_{ei_label}_resumed": launches_resumed}
+
+
 def main() -> int:
     import torch
 
@@ -633,7 +896,7 @@ def main() -> int:
 
     phase1_build(CK)
     max_err, ts_err = phase2_parity(torch, CK)
-    km_line, ts_line, km_f64_line, ts_f64_line = phase3_timings(smi)
+    km_lines, ts_lines = phase3_timings(smi)
     from turbojax_torch import registry as R
 
     paths = {
@@ -660,17 +923,18 @@ def main() -> int:
         ("turbo1_ackley10_f64", "turbo1_ackley10", dict(ts_dtype="float64")),
         ("turbo1_ackley10_rff", "turbo1_ackley10", dict(ts_sampler="rff")),
         ("turbo1_ackley10_pathwise", "turbo1_ackley10", dict(ts_sampler="pathwise")),
-        ("turbom5_rover60_pathwise", "turbom5_rover60", dict(ts_sampler="pathwise", max_evals=1000)),
-        ("turbom5_rover60_local_frac", "turbom5_rover60", dict(local_frac=0.3, max_evals=600)),
-        ("turbom5_rover60_fit_every2", "turbom5_rover60", dict(fit_every=2, max_evals=600)),
+        ("turbom5_rover60_pathwise", "turbom5_rover60", dict(ts_sampler="pathwise", max_evals=600)),
+        ("turbom5_rover60_local_frac", "turbom5_rover60", dict(local_frac=0.3, max_evals=400)),
+        ("turbom5_rover60_fit_every2", "turbom5_rover60", dict(fit_every=2, max_evals=400)),
     ):
         paths[label] = phase_config(torch, CK, smi, 8, name, **options)
     paths["turbo1_ackley10_resumed"] = phase8_kill_and_resume(torch, CK, smi)
+    paths.update(phase9_large_n(torch, CK, smi))
     entries = []
-    for name, source, replaces, err, line, f64_line in (
-        ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_line,
-         km_f64_line),
-        ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_line, ts_f64_line),
+    keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+    for name, source, replaces, err, (line, f64_line, large_line) in (
+        ("kernel_matrix", "turbojax_torch/csrc/kernel_matrix.cu", "turbojax/pallas_kernels.py:72", max_err, km_lines),
+        ("ts_cov", "turbojax_torch/csrc/ts_cov.cu", "turbojax/pallas_kernels.py:194", ts_err, ts_lines),
     ):
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -681,8 +945,8 @@ def main() -> int:
             "max_abs_err": err, "ms": line["kernel_ms"], "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
             "bound_by": line["bound_by"], "library_ms": line["library_ms"], "device_ms": line["device_ms"],
             "shape": line["shape"],
-            "f64": {k: f64_line[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                             "device_ms")},
+            "f64": {k: f64_line[k] for k in keys},
+            "large_n": {k: large_line[k] for k in keys},
         })
     _emit({"kernels": entries})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

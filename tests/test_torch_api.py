@@ -5,7 +5,8 @@
 imputation, TuRBO-m and its tell-follows-ask rule, the capacity guard, the
 ``optimize`` loop), ``Turbo1`` and ``TurboM``. Without ``device=`` every
 entry point asks for the GPU and, with none there, raises naming
-``device="cpu"``; what is not ported raises ``NotImplementedError``."""
+``device="cpu"``; a mesh (not ported yet) raises ``NotImplementedError``,
+and ``budget_bytes`` without one takes the JAX package's route, ``run_bo``."""
 
 import numpy as np
 import pytest
@@ -62,10 +63,47 @@ def test_optimize_rejects_unknown_and_unported():
     b = B.get_benchmark("branin")
     with pytest.raises(ValueError, match="unknown method"):
         optimize(b.fn, b.lb, b.ub, max_evals=10, method="cma", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 3"):
         optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", budget_bytes=1 << 20, device="cpu")
+    # budget_bytes is read only with a mesh: without one, plain BO runs as in the JAX package
+    res = optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", n_init=8, budget_bytes=1 << 20, gp_config=GCFG,
+                   n_candidates=32, device="cpu")
+    assert res.y_hist.shape == (10,) and np.isfinite(res.best_y)
+
+
+class _Routed(Exception):
+    pass
+
+
+def test_budget_bytes_takes_the_route_jax_takes(monkeypatch):
+    """``optimize(method="bo", budget_bytes=...)`` without a mesh: the JAX
+    package runs ``run_bo`` (``turbojax/api.py:108-122``) and never the large-N
+    loop; the port takes the same route."""
+    import jax.numpy as jnp
+
+    import turbojax.api as JA
+    import turbojax.bo as JBO
+    import turbojax.bo_distributed as JBD
+    import turbojax_torch.bo as TBO
+    import turbojax_torch.bo_distributed as TBD
+
+    def route(name):
+        def called(*args, **kwargs):
+            raise _Routed(name)
+
+        return called
+
+    for mod in (JBO, TBO):
+        monkeypatch.setattr(mod, "run_bo", route("run_bo"))
+    for mod in (JBD, TBD):
+        monkeypatch.setattr(mod, "run_bo_distributed", route("run_bo_distributed"))
+    for budget in (1, 1 << 40):
+        with pytest.raises(_Routed, match="^run_bo$"):
+            JA.optimize(lambda x: jnp.sum(x**2, axis=-1), [0.0] * 2, [1.0] * 2, max_evals=12, method="bo",
+                        budget_bytes=budget)
+        with pytest.raises(_Routed, match="^run_bo$"):
+            optimize(lambda x: torch.sum(x**2, dim=-1), [0.0] * 2, [1.0] * 2, max_evals=12, method="bo",
+                     budget_bytes=budget, device="cpu")
 
 
 def test_ask_tell_turbo1_black_box():

@@ -6,7 +6,7 @@ of ``run_bo``, ``run_turbo1`` and ``run_turbom`` killed from
 of a run never stopped, bit for bit; ``optimize(resume=True)`` on a
 finished run returns it; a restored ask/tell ``Optimizer`` asks what the
 saved one would have. Also ``runlog``: the JSONL log, the profiler trace,
-and ``start_profiler_server``'s refusal."""
+and ``start_profiler_server``'s repeated start."""
 
 import json
 import os
@@ -197,5 +197,8 @@ def test_runlog_jsonl_profile_and_profiler_server(tmp_path, capsys):
     assert '"fit"' in open(os.path.join(trace_dir, name)).read()
     with RL.profile(None):
         pass
-    with pytest.raises(NotImplementedError, match="PyTorch"):
-        RL.start_profiler_server(9999)
+    try:
+        assert RL.start_profiler_server(9999, trace_dir=str(tmp_path / "on_demand")) == 9999
+        assert RL.start_profiler_server(9999) == 9999  # a repeated start is a no-op
+    finally:
+        RL._stop_profiler_server()

@@ -7,9 +7,10 @@ and the constructor-style ``Turbo1`` and ``TurboM``.
 original box to a (q,) tensor. The ``Optimizer`` takes and returns numpy
 arrays and keeps tensors on the device inside. Every entry point runs on the
 GPU unless the caller asks for the CPU. Runs checkpoint and resume
-(``checkpoint_*``, ``resume``, ``Optimizer.save``/``restore``) bit for bit;
-meshes (``mesh=``, ``budget_bytes=``) are not ported and raise
-``NotImplementedError``.
+(``checkpoint_*``, ``resume``, ``Optimizer.save``/``restore``) bit for bit.
+Meshes (``mesh=``) are not ported yet and raise ``NotImplementedError``
+(ROADMAP.md §1, item 3); ``budget_bytes=`` without a mesh changes nothing, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -123,11 +124,18 @@ def optimize(
     ``ts_chunk`` is the Thompson-sampling chunk of the candidate axis (None
     samples all candidates jointly, as the JAX package's ``optimize`` does).
     ``host_loop`` does not apply (the loops are host loops); it keeps the
-    JAX package's signature."""
+    JAX package's signature. ``budget_bytes`` is the distributed route's
+    per-device memory threshold, read only with a mesh: without one,
+    ``method="bo"`` runs ``run_bo`` whatever it says, as the JAX package
+    does. ``mesh`` raises ``NotImplementedError``: the multi-device port
+    (ROADMAP.md §1, item 3) is not ported yet."""
     if method not in ("bo", "turbo1", "turbom"):
         raise ValueError(f"unknown method {method!r}")
-    if mesh is not None or budget_bytes is not None:
-        raise NotImplementedError("mesh= and budget_bytes= are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: the multi-device port (distributed_linalg, parallel and mesh= in optimize) "
+            "is ROADMAP.md §1, item 3; without a mesh, method='bo' runs run_bo whatever budget_bytes says"
+        )
     if generator is None:
         generator = torch.Generator(device=_resolve_device(device, "optimize")).manual_seed(seed)
     elif device is not None and torch.device(device) != generator.device:

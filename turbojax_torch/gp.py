@@ -38,12 +38,25 @@ Tensor = torch.Tensor
 _LOG_2PI = 1.8378770664093453
 
 # Above this many bytes of batched grid-fit work (~3·N²·itemsize per row)
-# the rows are scored one after another. The constant is the JAX package's,
-# measured on a TPU; it has not been measured on a GPU yet.
-_GRID_VMAP_BUDGET_BYTES = 12 << 30
+# the rows are scored one after another. Measured on an NVIDIA H100 80GB HBM3
+# at 700 W (``python3 -m turbojax_torch.bench_large_n --rules``: 15 rows,
+# d = 10, float32): one batch is faster up to N = 2048 (6.1 against 17.0 ms
+# at 1024, 15.7 against 27.5 at 2048), ties at 4096 (54.5 against 55.8 ms),
+# and is slower at 8192 (264 against 209 ms, and 19.0 GiB of peak memory
+# against 1.5); at 16384 it runs out of the 80 GB. 4 GiB batches 15 rows up
+# to N = 4096 and config 5's 80 rows at its 2048 rung (3.75 GiB), not 8192.
+_GRID_VMAP_BUDGET_BYTES = 4 << 30
 # gp_posterior auto-chunks the candidate axis when the (N_max, m) cross
-# matrix exceeds this size (the JAX package's constant, not yet re-measured).
-_POSTERIOR_AUTO_CHUNK_BYTES = 128 << 20
+# matrix exceeds this size. Measured on the same card (``bench_large_n
+# --rules``, N = 16384 unless said): the unchunked posterior is faster than
+# chunks of 1000 at every size timed, 12.3 against 19.8 ms at N = 8192 over
+# 5000 candidates, and 37.6 / 108 / 160 / 263 against 53.2 / 168 / 252 /
+# 419 ms over 5000 / 16000 / 24000 / 40000 (crosses of 0.31 / 0.98 / 1.46 /
+# 2.44 GiB), but it holds ~3× the cross matrix on top of the state (peak
+# 1.95 / 3.96 / 5.43 / 8.36 GiB against 1.22 chunked). So chunking is a
+# memory cap, not a speed rule: from 1 GiB of cross matrix, where the
+# unchunked posterior would need ~3 GiB more.
+_POSTERIOR_AUTO_CHUNK_BYTES = 1 << 30
 
 
 class GPParams(NamedTuple):
@@ -500,6 +513,14 @@ def _repeat_lanes(n_rows: int, *buffers: Tensor):
     return tuple(b.repeat_interleave(n_rows, dim=0) for b in buffers)
 
 
+def grid_rows_batched(n_rows: int, n_cap: int, itemsize: int) -> bool:
+    """Whether the grid fit scores its ``n_rows`` rows as one batch (one
+    kernel launch, one batched Cholesky) rather than one after another: while
+    their work, ~3·N²·itemsize bytes a row, fits ``_GRID_VMAP_BUDGET_BYTES``.
+    Both branches return the same hypers."""
+    return n_rows * 3 * n_cap * n_cap * itemsize <= _GRID_VMAP_BUDGET_BYTES
+
+
 def _fit_gp_grid(
     x_buf: Tensor, y_buf: Tensor, mask: Tensor, config: GPConfig, adam_polish: bool = False,
     warm_start: Optional[GPParams] = None, stats: Optional[Dict[str, object]] = None,
@@ -545,11 +566,10 @@ def _fit_gp_grid(
         val = mll(r, x, y, m, config)
         return val + log_prior(r, dim, config) if config.fit_prior != "none" else val
 
-    lane_bytes = 3 * n_cap * n_cap * y_buf.element_size()
-    if n_fit * n_rows * lane_bytes > _GRID_VMAP_BUDGET_BYTES:
-        mlls = torch.stack([score(_row(flat, i), x_r[i], y_r[i], mask_r[i]) for i in range(n_fit * n_rows)])
-    else:
+    if grid_rows_batched(n_fit * n_rows, n_cap, y_buf.element_size()):
         mlls = score(flat, x_r, y_r, mask_r)
+    else:
+        mlls = torch.stack([score(_row(flat, i), x_r[i], y_r[i], mask_r[i]) for i in range(n_fit * n_rows)])
     mlls = mlls.reshape(n_fit, n_rows)
     mlls = torch.where(torch.isfinite(mlls), mlls, torch.full_like(mlls, -torch.inf))
     best = torch.argmax(mlls, dim=-1)

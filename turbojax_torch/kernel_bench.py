@@ -79,6 +79,15 @@ KM_SHAPES = [
     # its largest rung, config 4's 1000 against its 1000-row buffer
     ("pathwise_cross_5000x2000_d60", 1, 5000, 2000, 60, False, "matern52"),
     ("pathwise_cross_1000x1000_d10", 1, 1000, 1000, 10, False, "matern52"),
+    # large-N plain BO at d = 10 (bench_large_n, chip_smoke phase 9): K(X, X) at
+    # 16384 points (the factorization and each sequential grid row), the grid
+    # fit's 15 rows and the L-BFGS fit's 4 lanes at 8192, the pathwise cross of
+    # 5000 candidates and a posterior chunk of 1000 against 16384 rows
+    ("large_kxx_16384x16384_d10", 1, 16384, 16384, 10, True, "matern52"),
+    ("large_grid15_8192x8192_d10", 15, 8192, 8192, 10, True, "matern52"),
+    ("large_lbfgs4_8192x8192_d10", 4, 8192, 8192, 10, True, "matern52"),
+    ("large_cross_5000x16384_d10", 1, 5000, 16384, 10, False, "matern52"),
+    ("large_post_16384x1000_d10", 1, 16384, 1000, 10, False, "matern52"),
 ]
 # (label, batch, m, n, d): the single chunks the paths launch
 TS_SHAPES = [
@@ -86,6 +95,7 @@ TS_SHAPES = [
     ("path_1x1000_n512_d60", 1, 1000, 512, 60),
     ("path_1x1000_n1000_d10", 1, 1000, 1000, 10),
     ("bench_1x1000_n2048_d10", 1, 1000, 2048, 10),
+    ("large_1x1000_n16384_d10", 1, 1000, 16384, 10),  # the exact Thompson chunk at large N
 ]
 # the f64 Thompson lane (ts_dtype="float64"): acq._state_f64's refactorization,
 # posterior_cov's cross and the chunk covariance, at config 4's sizes (the
@@ -101,6 +111,7 @@ TS_F64_SHAPES = [
     ("f64_path_1x1000_n2000_d60", 1, 1000, 2000, 60),
 ]
 KM_HEADLINE, TS_HEADLINE = KM_SHAPES[0][0], TS_SHAPES[0][0]
+KM_LARGE_HEADLINE, TS_LARGE_HEADLINE = "large_kxx_16384x16384_d10", "large_1x1000_n16384_d10"
 KM_F64_HEADLINE, TS_F64_HEADLINE = KM_F64_SHAPES[0][0], TS_F64_SHAPES[0][0]
 _EPILOGUE_OPS = 12  # per distinct entry: d² from the norms, clamp, sqrt, exp and the polynomial
 

@@ -4,7 +4,9 @@
 (``verbose=True``) and writes one JSON record per iteration (incumbent, TR
 length, timings) to an append-only JSONL file. ``profile`` wraps a region in
 ``torch.profiler.profile`` and writes a Chrome trace; ``annotate`` is a named
-profiler span (``torch.profiler.record_function``).
+profiler span (``torch.profiler.record_function``). ``start_profiler_server``
+lets a running process be traced on demand: each ``SIGUSR2`` opens or closes
+a profiler window.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import signal
 import time
 from typing import IO, Optional
 
@@ -60,11 +63,18 @@ def profile(trace_dir: Optional[str] = None):
     if trace_dir is None:
         yield
         return
+    with torch.profiler.profile(activities=_activities()) as prof:
+        yield
+    _export(prof, trace_dir)
+
+
+def _activities():
     from torch.profiler import ProfilerActivity
 
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
+    return [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+
+
+def _export(prof, trace_dir: str) -> None:
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
@@ -76,11 +86,54 @@ def annotate(name: str):
         yield
 
 
-def start_profiler_server(port: int = 9999) -> int:
-    """The JAX package's live profiler server (``jax.profiler.start_server``)
-    has no PyTorch counterpart: torch.profiler traces a region in-process
-    and has no server to attach to. Wrap the region in ``profile`` instead."""
-    raise NotImplementedError(
-        "start_profiler_server has no PyTorch counterpart (torch.profiler has no live server); "
-        "wrap the region in runlog.profile(trace_dir) instead"
-    )
+class _SignalProfiler:
+    """The ``SIGUSR2`` toggle behind ``start_profiler_server``: the first
+    signal starts a ``torch.profiler.profile``, the next stops it and writes
+    its Chrome trace to ``trace_dir``."""
+
+    def __init__(self, trace_dir: str, previous):
+        self.trace_dir = trace_dir
+        self.previous = previous  # the handler to put back on stop
+        self.prof = None
+
+    def toggle(self, signum, frame) -> None:
+        if self.prof is None:
+            self.prof = torch.profiler.profile(activities=_activities())
+            self.prof.start()
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        _export(prof, self.trace_dir)
+
+
+# one per process, as the signal handler it installs
+_SIGNAL_PROFILER: Optional[_SignalProfiler] = None
+
+
+def start_profiler_server(port: int = 9999, trace_dir: str = "profiler_traces") -> int:
+    """On-demand profiling of a long run, in place of the JAX package's live
+    profiler server (``jax.profiler.start_server``): installs a ``SIGUSR2``
+    handler, so that ``kill -USR2 <pid>`` starts a ``torch.profiler`` window
+    and the next ``kill -USR2 <pid>`` closes it and writes its Chrome trace
+    to ``trace_dir/trace_<pid>_<ns>.json``. Nothing listens on ``port``: it
+    is returned, as the JAX package's function returns it. A repeated call
+    is a no-op (the first call's ``trace_dir`` stays); the handler runs in
+    the main thread, so call this from there."""
+    global _SIGNAL_PROFILER
+    if _SIGNAL_PROFILER is None:
+        handler = _SignalProfiler(trace_dir, signal.getsignal(signal.SIGUSR2))
+        signal.signal(signal.SIGUSR2, handler.toggle)
+        _SIGNAL_PROFILER = handler
+    return port
+
+
+def _stop_profiler_server() -> None:
+    """Remove ``start_profiler_server``'s handler (an open window is closed
+    and written first) and put the previous ``SIGUSR2`` handler back."""
+    global _SIGNAL_PROFILER
+    handler, _SIGNAL_PROFILER = _SIGNAL_PROFILER, None
+    if handler is None:
+        return
+    signal.signal(signal.SIGUSR2, signal.SIG_DFL if handler.previous is None else handler.previous)
+    if handler.prof is not None:
+        handler.toggle(signal.SIGUSR2, None)
