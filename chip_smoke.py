@@ -41,7 +41,12 @@ non-zero and the final line is not printed:
    fit's (15, 8192², 10) and (1, 46400², 10) (where a row offset times the
    row length passes 2³¹), is checked whole for finiteness, run-to-run
    equality and its diagonal, and gated in three blocks of 64 rows that
-   must equal their mirrored columns. Then the kernel-matrix gradients
+   must equal their mirrored columns. The distributed GP's row blocks with
+   the exact self-value on their global diagonal (``diag_offset``): a
+   2048-row block of 8192 points at offset 4096, a ragged 130-row block at
+   d = 60 and the whole 4096-point matrix at offset 0 (one tensor: the
+   symmetric schedule), gated the same way, the diagonal exact in both
+   dtypes. Then the kernel-matrix gradients
    (kernel forward, plain
    backward) against plain autograd at (16, 2048, 60) and (4, 112, 6), and a small GP
    problem on the card (float64, through the kernels) against the same
@@ -49,7 +54,9 @@ non-zero and the final line is not printed:
 3. ``turbojax_torch.kernel_bench``: both kernels at the shapes the paths
    launch (with the large-N shapes: K(X, X) at 16384 points, the grid's
    15 and the L-BFGS fit's 4 lanes at 8192, the 5000 × 16384 pathwise
-   cross, a 16384 × 1000 posterior chunk, the TS chunk at n = 16384), each
+   cross, a 16384 × 1000 posterior chunk, the TS chunk at n = 16384; the
+   distributed GP's blocks at N = 16384: the whole matrix of a mesh of one
+   device and an 8192-row block of a mesh of two), each
    against its plain version (CUDA events) with its device
    time (torch.profiler), its bound and share and, for ts_cov, the time of
    ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
@@ -100,15 +107,32 @@ non-zero and the final line is not printed:
    iteration 2 (what a run killed in iteration 3 leaves) resumed: iteration
    3 is off the fit cadence, so the resumed run refactorizes at the
    restored hypers, and its trace and history must equal the uninterrupted
-   run's bit for bit.
+   run's bit for bit;
+10. the multi-device modules on a mesh of one device, an NCCL process group
+   of this process alone (``turbojax_torch.parallel``): (a) at d = 10,
+   N = 16384, 5000 candidates, q = 10, panels of 128, the row-sharded
+   ``DistributedGP`` (factorization, posterior, MLL),
+   ``distributed_pathwise_paths`` with the dense sampler's draws and
+   ``fit_distributed_gp``'s 5 Adam steps, each against the dense route on
+   the same inputs (in f32 the distributed route's error against the dense
+   route in f64 at most twice the dense route's own, or 1e-5 of the
+   reference's magnitude), and the same at N = 4096 in f64 to rtol 1e-9;
+   (b) ``sharded_acq_topq`` over 40000 candidates (above
+   ``CAND_SHARD_MIN``) at N = 2000, bitwise the dense top-q, and
+   ``sharded_fit_gp`` at config 2's width against ``gp.fit_gp`` by the
+   fitted loss (rtol 1e-4); (c) ``optimize(method="turbom", mesh=...)`` at
+   config 5's width, 400 evaluations, which must improve on its initial
+   design; (d) ``optimize(method="bo", mesh=...)`` on Branin with
+   ``budget_bytes=1``, and the same loop's run log: dense every iteration.
 
-In phases 4 to 9 the launch counters are set to 0 just before each run and
+In phases 4 to 10 the launch counters are set to 0 just before each run and
 read just after; a run fails unless the kernels of its path were launched
 (the kernel matrix on every path; the TS covariance wherever the exact
 Thompson sampler runs: configs 3, 4 and 5 and the TuRBO ask/tell runs, not
 the RFF and pathwise samplers, which build no candidate covariance; in
 phase 9 the kernel matrix in each loop and the TS covariance in the
-components) and the
+components; in phase 10 the kernel matrix in every part and the TS
+covariance in the TuRBO-m run) and the
 result is finite, its incumbent trace non-increasing, and its best value
 better than the initial design's. Phase 3 also times both kernels at the f64
 lane's shapes and the pathwise cross (5000 × 2000 at d = 60, 1000 × 1000 at
@@ -336,6 +360,7 @@ def phase2_parity(torch, CK):
         _emit({"phase": 2, "kernel": "kernel_matrix", "case": label, "shape": [list(z1.shape), list(z2.shape)],
                "ok": True, "f32_err_vs_f64_plain": versus_f64})
     n_checked += _large_kernel_matrix_parity(torch, CK, worst)
+    n_checked += _offset_parity(torch, CK, worst)
     _emit({"phase": 2, "kernel": "kernel_matrix", "comparisons": n_checked,
            "max_abs_err_f32_vs_f64_plain": worst[torch.float32], "max_abs_err_f64": worst[torch.float64],
            "tolerance_f32": [F32_RTOL, F32_ATOL], "tolerance_f64_rtol": F64_RTOL})
@@ -408,6 +433,62 @@ def _large_kernel_matrix_parity(torch, CK, worst):
                "ok": True, "f32_err_vs_f64_plain": versus_f64})
         del z, a, a64
         torch.cuda.empty_cache()
+    return n_checked
+
+
+# (label, rows, n, d, diag_offset): the distributed GP's row blocks of K(Z, Z)
+# with the exact self-value on the global diagonal (``diag_offset``): a rank's
+# block of a mesh of four at N = 8192, a ragged block at d = 60, and the whole
+# matrix of a mesh of one device (one tensor: the symmetric schedule)
+OFFSET_CASES = (("dist_rowblock_2048x8192_d10_off4096", 2048, 8192, 10, 4096),
+                ("dist_rowblock_130x390_d60_off130", 130, 390, 60, 130),
+                ("dist_whole_4096x4096_d10", 4096, 4096, 10, 0))
+
+
+def _offset_parity(torch, CK, worst):
+    """The kernel matrix of a row block against all of Z with the exact
+    global diagonal, gated against the plain version with the same offset as
+    the cases above are; the entries (i, i + offset) must be outputscale
+    (+ noise) exactly in both dtypes, two calls bitwise equal and the whole
+    matrix bitwise symmetric. Returns the comparisons made."""
+    n_checked = 0
+    for label, rows, n, d, off in OFFSET_CASES:
+        gen = _case_generator(torch, label)
+        z = torch.rand((n, d), generator=gen, device="cuda", dtype=torch.float64) / math.sqrt(d / 24)
+        z = z - z.mean(dim=0, keepdim=True)
+        versus_f64 = {"kernel": 0.0, "plain": 0.0}
+        for dtype in (torch.float32, torch.float64):
+            a = z.to(dtype).contiguous()
+            ar = a if rows == n else a[off:off + rows]
+            a64 = a.double()
+            ar64 = a64 if rows == n else a64[off:off + rows]
+            s = torch.tensor(1.3, dtype=dtype, device="cuda")
+            nz = torch.tensor(1e-3, dtype=dtype, device="cuda")
+            r = torch.arange(rows, device="cuda")
+            for name in CK.KERNEL_IDS:
+                for add_noise in (False, True):
+                    what = f"{label} {dtype} {name} noise={add_noise}"
+                    got = CK.kernel_matrix(ar, a, s, nz, name, add_noise, diag_offset=off)
+                    again = CK.kernel_matrix(ar, a, s, nz, name, add_noise, diag_offset=off)
+                    torch.cuda.synchronize()
+                    ref = CK.kernel_matrix_reference(ar, a, s, nz, name, add_noise, off)
+                    exact = ref if dtype == torch.float64 else CK.kernel_matrix_reference(
+                        ar64, a64, s.double(), nz.double(), name, add_noise, off)
+                    err, plain_err = _gate_kernel_matrix(torch, what, got, ref, exact)
+                    _require(torch.equal(got, again), f"{what}: two calls differ")
+                    _require(bool((got[r, off + r] == (s + nz if add_noise else s)).all()),
+                             f"{what}: the global diagonal is not outputscale + noise exactly")
+                    if rows == n:
+                        _require(torch.equal(got, got.mT), f"{what}: K(Z, Z) is not bitwise symmetric")
+                    worst[dtype] = max(worst[dtype], err)
+                    n_checked += 1
+                    if dtype == torch.float32:
+                        versus_f64["kernel"] = max(versus_f64["kernel"], err)
+                        versus_f64["plain"] = max(versus_f64["plain"], plain_err)
+                    del got, again, ref, exact
+        _require_no_worse("kernel_matrix", label, versus_f64, F32_ATOL)
+        _emit({"phase": 2, "kernel": "kernel_matrix", "case": label, "shape": [[rows, d], [n, d]],
+               "diag_offset": off, "ok": True, "f32_err_vs_f64_plain": versus_f64})
     return n_checked
 
 
@@ -888,6 +969,261 @@ def phase9_large_n(torch, CK, smi):
             f"large_n_{ei_label}_resumed": launches_resumed}
 
 
+DIST_D, DIST_N, DIST_N64, DIST_PANEL, DIST_CAND, DIST_Q, DIST_FEATURES = 10, 16384, 4096, 128, 5000, 10, 1024
+# the f32 gate of phase 10(a): the distributed route's largest error against
+# the dense route in f64 may be at most twice the dense route's own in f32,
+# or this share of the reference's largest magnitude (the f32 round-off
+# floor); in f64 the two routes agree to rtol 1e-9 (normwise)
+DIST_F32_FLOOR, DIST_F64_RTOL = 1e-5, 1e-9
+# phase 10(b): the restart-sharded L-BFGS fit against the dense one, on one
+# device, by the fitted objective −mll/n. The hypers are not gated: in f32
+# the lanes settle apart along the loss's flat directions (a lengthscale or
+# the noise saturated at its bound; on the CPU at this width: raw values
+# 14.9 against 16.4 at equal losses)
+SHARDED_FIT_LOSS_RTOL = 1e-4
+
+
+def _add_launches(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _gate_route(torch, checks, what, dist, dense, exact=None):
+    """Phase 10(a)'s gates (see DIST_F32_FLOOR): with ``exact`` (the dense
+    route in f64) the f32 gate, without it the f64 one; records the errors
+    and the tolerance under ``checks[what]``."""
+    dist, dense = dist.double(), dense.double()
+    _require(bool(torch.isfinite(dist).all()), f"phase 10 {what}: non-finite values")
+    if exact is None:
+        err = float((dist - dense).abs().max())
+        tol = DIST_F64_RTOL * float(dense.abs().max())
+        checks[what] = {"max_abs_err_vs_dense": err, "tol": tol}
+    else:
+        err, dense_err = (float((v - exact).abs().max()) for v in (dist, dense))
+        tol = max(2.0 * dense_err, DIST_F32_FLOOR * float(exact.abs().max()))
+        checks[what] = {"max_abs_err_vs_f64_dense": err, "dense_f32_err": dense_err, "tol": tol}
+    _require(err <= tol, f"phase 10 {what}: error {err:.3e} above the tolerance {tol:.3e}")
+
+
+def _phase10_primitives(torch, CK, mesh, dtype, n):
+    """(a) At d = 10, N = ``n``, 5000 candidates, q = 10, panels of 128 and
+    the default hypers: the row-sharded factorization (``DistributedGP``
+    through ``refactor_gp_auto``'s assembly), its posterior, MLL and
+    pathwise paths, and ``fit_distributed_gp``'s 5 Adam steps, each against
+    the dense route on the same inputs and draws. Returns (launches of the
+    distributed calls, checks, walls)."""
+    import dataclasses
+
+    from turbojax_torch import acq as A
+    from turbojax_torch import bench_large_n as BL
+    from turbojax_torch import distributed_linalg as DL
+    from turbojax_torch import gp as G
+    from turbojax_torch.config import GPConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x, y, mask, cands = BL.problem(n, gen, DIST_D, DIST_CAND)
+    x, y, cands = x.to(dtype), y.to(dtype), cands.to(dtype)
+    config = GPConfig(kernel="matern52")
+    adam5 = dataclasses.replace(config, fit_optimizer="adam", fit_maxiter=5, fit_restarts=1)
+    raw = G.default_params(DIST_D, config, dtype, "cuda")
+    omega, b = A.rff_frequencies(DIST_D, DIST_FEATURES, "matern52", gen, dtype, "cuda")
+    draws = A.Draws(omega=omega, b=b, weights=torch.randn((DIST_Q, DIST_FEATURES), generator=gen, dtype=dtype,
+                                                         device="cuda"),
+                    eps=torch.randn((DIST_Q, n), generator=gen, dtype=dtype, device="cuda"))
+    launches, walls = {}, {}
+
+    def counted(label, fn):
+        out, wall, counts = _counted(torch, CK, fn)
+        _add_launches(launches, counts)
+        walls[label] = wall
+        return out
+
+    dgp = counted("factor_s", lambda: DL._assemble_distributed_gp(x, y, raw, config, mesh, DIST_PANEL))
+    mu_d, var_d = counted("posterior_s", lambda: dgp.posterior(cands))
+    mll_d = counted("mll_s", dgp.mll)
+    paths_d = counted("pathwise_s", lambda: DL.distributed_pathwise_paths(dgp, cands, DIST_Q, DIST_FEATURES,
+                                                                         draws=draws))
+    fit_d = counted("fit_adam5_s", lambda: DL.fit_distributed_gp(x, y, mesh, adam5, DIST_PANEL))
+    del dgp
+
+    def dense(xx, yy, cc, rr, dd):
+        state = G.make_gp_state(xx, yy, mask, rr, config)
+        mu, var = G.gp_posterior(state, cc, config)
+        out = {"mu": mu, "var": var, "mll": DL._adapt_dense(state, yy, mask, config).mll(),
+               "paths": A.pathwise_paths(state, cc, DIST_Q, config, DIST_FEATURES, draws=dd)}
+        del state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["fit"] = G.fit_gp(xx, yy, mask, adam5).raw
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ref, walls["dense_fit_adam5_s"] = dense(x, y, cands, raw, draws)
+    got = {"mu": mu_d, "var": var_d, "mll": mll_d, "paths": paths_d, "fit": fit_d.raw}
+    checks = {}
+    if dtype == torch.float32:
+        draws64 = A.Draws(**{k: None if v is None else v.double() for k, v in draws._asdict().items()})
+        exact, _ = dense(x.double(), y.double(), cands.double(), G.GPParams(*(v.double() for v in raw)), draws64)
+    for key in got:
+        if key == "fit":
+            flat = [torch.cat([v.reshape(-1) for v in r[key]]) for r in (got, ref)]
+            ex = torch.cat([v.reshape(-1) for v in exact[key]]) if dtype == torch.float32 else None
+            _gate_route(torch, checks, "fit_adam5_raw", *flat, ex)
+        else:
+            _gate_route(torch, checks, key, got[key], ref[key], exact[key] if dtype == torch.float32 else None)
+    return launches, checks, walls
+
+
+def _phase10_parallel(torch, CK, mesh):
+    """(b) ``sharded_acq_topq`` (EI, q = 10) at N = 2000 over 40000
+    candidates, above ``CAND_SHARD_MIN``, against the dense top-q (on one
+    device the same arithmetic: bitwise); ``sharded_fit_gp`` at config 2's
+    width (``hartmann6_lbfgs``: 112 points, d = 6, four L-BFGS restarts)
+    against ``gp.fit_gp`` from the same restart draws. Returns ({part:
+    launches}, checks)."""
+    from turbojax_torch import acq as A
+    from turbojax_torch import bench_large_n as BL
+    from turbojax_torch import benchmarks as B
+    from turbojax_torch import gp as G
+    from turbojax_torch import parallel as PAR
+    from turbojax_torch import registry as R
+    from turbojax_torch import sampling as S
+    from turbojax_torch import transforms as T
+    from turbojax_torch.bo import lowest_k
+    from turbojax_torch.bo_distributed import CAND_SHARD_MIN
+    from turbojax_torch.config import GPConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    config = GPConfig(kernel="matern52")
+    x, y, mask, _ = BL.problem(2000, gen)
+    cands = torch.rand((40000, DIST_D), generator=gen, device="cuda")
+    _require(cands.shape[0] >= CAND_SHARD_MIN, "phase 10(b): below CAND_SHARD_MIN")
+    state = G.make_gp_state(x, y, mask, G.default_params(DIST_D, config, torch.float32, "cuda"), config)
+    best = y.min()
+    (pts, scores), _, l_acq = _counted(torch, CK, lambda: PAR.sharded_acq_topq(state, cands, best, DIST_Q, mesh,
+                                                                               config, "ei"))
+    mu, var = G.gp_posterior(state, cands, config)
+    dense_scores = -A.expected_improvement(mu, var, best)
+    idx = lowest_k(dense_scores, DIST_Q)
+    _require(torch.equal(pts, cands[idx]) and torch.equal(scores, dense_scores[idx]),
+             "phase 10(b): sharded_acq_topq differs from the dense top-q")
+    checks = {"acq_topq_equal_to_dense": True, "candidates": cands.shape[0], "n": x.shape[0]}
+
+    c2 = R.get_config("hartmann6_lbfgs")
+    bench = B.get_benchmark(c2.benchmark)
+    lb = torch.tensor(bench.lb, device="cuda")
+    ub = torch.tensor(bench.ub, device="cuda")
+    xs = S.latin_hypercube(c2.bo.max_evals, bench.dim, gen, torch.float32, "cuda")
+    ys = bench.fn(T.from_unit_cube(xs, lb, ub)).to(torch.float32)
+    mask2 = torch.ones(xs.shape[0], dtype=torch.bool, device="cuda")
+    sharded, _, l_fit = _counted(torch, CK, lambda: PAR.sharded_fit_gp(
+        xs, ys, mask2, c2.gp, mesh, generator=torch.Generator(device="cuda").manual_seed(13)))
+    dense = G.fit_gp(xs, ys, mask2, c2.gp, generator=torch.Generator(device="cuda").manual_seed(13))
+    y_std, _, _ = T.standardize(ys, mask2)
+    loss_sh, loss_dn = (float(-G.mll(st.raw, xs, y_std, mask2, c2.gp)) / xs.shape[0] for st in (sharded, dense))
+    err = abs(loss_sh - loss_dn)
+    tol = SHARDED_FIT_LOSS_RTOL * max(1.0, abs(loss_dn))
+    _require(err <= tol, f"phase 10(b): sharded_fit_gp's loss {loss_sh} against the dense fit's {loss_dn}")
+    ls_sh, ls_dn = (G.constrain_params(st.raw, c2.gp)["lengthscale"] for st in (sharded, dense))
+    checks["sharded_fit_loss"] = {"loss": loss_sh, "dense_loss": loss_dn, "abs_err": err, "tol": tol,
+                                  "lengthscale_max_rel_diff": float(((ls_sh - ls_dn).abs() / ls_dn).max()),
+                                  "restarts": c2.gp.fit_restarts, "n": xs.shape[0], "d": bench.dim}
+    for kernel in ("kernel_matrix",):
+        _require(l_acq[kernel] > 0 and l_fit[kernel] > 0, f"phase 10(b) ran without launching the {kernel} kernel")
+    return {"mesh_acq_topq": l_acq, "mesh_sharded_fit": l_fit}, checks
+
+
+def _phase10_loops(torch, CK, smi, mesh):
+    """(c) ``optimize(method="turbom", mesh=mesh)`` at config 5's width (m =
+    5, rover-60, 5000 candidates per region, TS chunks of 1000, its GP),
+    400 evaluations; (d) ``optimize(method="bo", mesh=mesh)`` on Branin (30
+    evaluations, q = 2, EI) with ``budget_bytes=1``, and the same loop
+    through ``run_bo_distributed`` with a run log: on one device every
+    iteration takes the dense route."""
+    from turbojax_torch import benchmarks as B
+    from turbojax_torch import optimize
+    from turbojax_torch import registry as R
+    from turbojax_torch.bo import BOConfig
+    from turbojax_torch.bo_distributed import run_bo_distributed
+    from turbojax_torch.runlog import RunLog
+    from turbojax_torch.trust_region import TurboConfig
+
+    c5 = R.get_config("turbom5_rover60")
+    t = c5.turbo
+    bench = B.get_benchmark(c5.benchmark)
+    evals = 400
+    res, wall, l_tm = _counted(torch, CK, lambda: optimize(
+        bench.fn, bench.lb, bench.ub, evals, method="turbom", m=c5.m, n_init=t.n_init, batch_size=t.batch_size,
+        gp_config=c5.gp, tr_config=t.tr, fit_every=t.fit_every, n_candidates=t.n_candidates, ts_chunk=t.ts_chunk,
+        seed=0, mesh=mesh))
+    iterations = TurboConfig(n_init=t.n_init, max_evals=evals, batch_size=t.batch_size).n_iters
+    init_best = float(res.incumbent_trace[c5.m * t.n_init // t.batch_size - 1])
+    _check_run("turbom5_rover60 on the mesh", res, l_tm, init_best, iterations)
+    _emit({"phase": 10, "part": "c", "config": "turbom5_rover60", "mesh": mesh.size, "evals": len(res.y_hist),
+           "wall_s": wall, "best_y": res.best_y, "init_design_best": init_best, "launches": l_tm, "card": smi})
+
+    branin = B.get_benchmark("branin")
+    kw = dict(n_init=10, max_evals=30, batch_size=2, acq="ei", n_candidates=2000)
+    res, wall, l_bo = _counted(torch, CK, lambda: optimize(branin.fn, branin.lb, branin.ub, kw["max_evals"],
+                                                           method="bo", seed=0, mesh=mesh, budget_bytes=1,
+                                                           **{k: v for k, v in kw.items() if k != "max_evals"}))
+    _check_run("branin bo on the mesh", res, l_bo, float(res.y_hist[:kw["n_init"]].min()),
+               BOConfig(**kw).n_iters, ("kernel_matrix",))
+    log = RunLog()
+    run_bo_distributed(branin.fn, branin.lb, branin.ub, BOConfig(**kw), mesh=mesh, budget_bytes=1, runlog=log,
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+    routes = sorted({r["route"] for r in log.records})
+    _require(routes == ["dense"], f"phase 10(d): a mesh of one device took the routes {routes}")
+    _emit({"phase": 10, "part": "d", "benchmark": "branin", "mesh": mesh.size, "evals": len(res.y_hist),
+           "wall_s": wall, "best_y": res.best_y, "routes": routes, "launches": l_bo, "card": smi})
+    return {"mesh_turbom5_rover60": l_tm, "mesh_bo_branin": l_bo}
+
+
+def phase10_mesh(torch, CK, smi):
+    """Phase 10: the multi-device modules on a mesh of one device, an NCCL
+    process group of this process alone (a ``FileStore`` under
+    ``build/chip_smoke/``, ``device_id`` cuda:0), destroyed at the end:
+    (a) ``_phase10_primitives`` at N = 16384 in f32 and, the exactness
+    check, at N = 4096 in f64; (b) ``_phase10_parallel``; (c) and (d)
+    ``_phase10_loops``. Returns {part: launches}."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from turbojax_torch import parallel as PAR
+
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    store_dir = tempfile.mkdtemp(dir=ckpt_dir)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = PAR.make_mesh(axis="rows")
+        _require(mesh.size == 1 and mesh.device == torch.device("cuda", 0) and dist.get_backend() == "nccl",
+                 f"phase 10: the mesh is {mesh}")
+        PAR.barrier(mesh)  # NCCL sets its communicator up at the first collective: not inside a timed call
+        paths = {}
+        for dtype, n in ((torch.float32, DIST_N), (torch.float64, DIST_N64)):
+            launches, checks, walls = _phase10_primitives(torch, CK, mesh, dtype, n)
+            label = f"mesh_primitives_{str(dtype)[6:]}_n{n}"
+            _require(launches["kernel_matrix"] > 0, f"{label} ran without launching the kernel_matrix kernel")
+            paths[label] = launches
+            _emit({"phase": 10, "part": "a", "dtype": str(dtype)[6:], "n": n, "d": DIST_D, "candidates": DIST_CAND,
+                   "q": DIST_Q, "panel": DIST_PANEL, "checks": checks, "walls_s": walls, "launches": launches,
+                   "card": smi})
+            torch.cuda.empty_cache()
+        launches, checks = _phase10_parallel(torch, CK, mesh)
+        paths.update(launches)
+        _emit({"phase": 10, "part": "b", "checks": checks, "launches": launches, "card": smi})
+        paths.update(_phase10_loops(torch, CK, smi, mesh))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    _emit({"phase": 10, "wall_s": time.perf_counter() - t0, "card": smi})
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -930,6 +1266,7 @@ def main() -> int:
         paths[label] = phase_config(torch, CK, smi, 8, name, **options)
     paths["turbo1_ackley10_resumed"] = phase8_kill_and_resume(torch, CK, smi)
     paths.update(phase9_large_n(torch, CK, smi))
+    paths.update(phase10_mesh(torch, CK, smi))
     entries = []
     keys = ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     for name, source, replaces, err, (line, f64_line, large_line) in (

@@ -5,8 +5,11 @@
 imputation, TuRBO-m and its tell-follows-ask rule, the capacity guard, the
 ``optimize`` loop), ``Turbo1`` and ``TurboM``. Without ``device=`` every
 entry point asks for the GPU and, with none there, raises naming
-``device="cpu"``; a mesh (not ported yet) raises ``NotImplementedError``,
-and ``budget_bytes`` without one takes the JAX package's route, ``run_bo``."""
+``device="cpu"``; on a mesh (a gloo group of this process alone)
+``optimize`` runs plain BO and refuses what the JAX package refuses (TuRBO-1,
+a checkpointed sharded TuRBO-m) and a device other than the mesh's; and
+``budget_bytes`` without a mesh takes the JAX package's route, ``run_bo``.
+The multi-rank runs are in ``tests/test_torch_bo_mesh.py``."""
 
 import numpy as np
 import pytest
@@ -59,12 +62,26 @@ def test_optimize_turbom():
     assert np.isfinite(res.best_y) and res.incumbent_trace.shape[0] > 0
 
 
-def test_optimize_rejects_unknown_and_unported():
+def test_optimize_rejects_unknown_and_unported(tmp_path):
+    """Unknown methods; on a mesh, what the JAX package refuses (TuRBO-1 has
+    no axis to shard; the TR-sharded TuRBO-m does not checkpoint) and a
+    device that is not the mesh's, while plain BO runs there."""
+    from torch_mesh_cases import world1_group
+
     b = B.get_benchmark("branin")
     with pytest.raises(ValueError, match="unknown method"):
         optimize(b.fn, b.lb, b.ub, max_evals=10, method="cma", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", mesh=object(), device="cpu")
+    with world1_group(tmp_path) as mesh:
+        with pytest.raises(ValueError, match="turbo1 has no device axis"):
+            optimize(b.fn, b.lb, b.ub, max_evals=10, method="turbo1", mesh=mesh)
+        with pytest.raises(ValueError, match="checkpointing is not supported"):
+            optimize(b.fn, b.lb, b.ub, max_evals=10, method="turbom", m=2, mesh=mesh,
+                     checkpoint_path=str(tmp_path / "c"))
+        with pytest.raises(ValueError, match="differs from the mesh"):
+            optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", mesh=mesh, device="cuda")
+        res = optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", n_init=8, batch_size=2, mesh=mesh,
+                       gp_config=GCFG, n_candidates=32, budget_bytes=1)
+        assert res.y_hist.shape == (10,) and np.isfinite(res.best_y)
     # budget_bytes is read only with a mesh: without one, plain BO runs as in the JAX package
     res = optimize(b.fn, b.lb, b.ub, max_evals=10, method="bo", n_init=8, budget_bytes=1 << 20, gp_config=GCFG,
                    n_candidates=32, device="cpu")

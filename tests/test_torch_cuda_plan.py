@@ -160,9 +160,9 @@ def test_same_input_is_kept_through_the_2d_to_3d_step(dtype, rng, monkeypatch):
     seen = []
     real = CK._forward
 
-    def spy(z1, z2, outputscale, noise, kernel_name, add_noise, same):
+    def spy(z1, z2, outputscale, noise, kernel_name, add_noise, same, diag_offset):
         seen.append(same)
-        return real(z1, z2, outputscale, noise, kernel_name, add_noise, same)
+        return real(z1, z2, outputscale, noise, kernel_name, add_noise, same, diag_offset)
 
     monkeypatch.setattr(CK, "_forward", spy)
     got = CK.kernel_matrix(z, z, 1.3, 0.25, "matern12", True)

@@ -5,7 +5,11 @@
 ``fit_gp_auto`` from JAX's restart draws: L-BFGS held by its result, as in
 ``tests/test_torch_gp_fit.py`` (the final −mll/n at most JAX's + 1e-3);
 ``refactor_gp_auto``, ``.posterior`` and ``.mll`` at pinned
-hypers to rtol 1e-10, with and without the bilog warp. A mesh is refused;
+hypers to rtol 1e-10, with and without the bilog warp. A mesh of one
+device takes the dense route whatever the budget, one of two above it the
+distributed route, and ``run_bo_distributed`` refuses a mesh that does not
+divide its batches (the meshes of more ranks are in
+``tests/test_torch_distributed_mesh.py``);
 the off-cadence refactor sees new data (``tests/test_bo_distributed.py:114``
 at world size 1); the grid fit's two branches (``gp.grid_rows_batched``)
 give equal hypers.
@@ -96,14 +100,27 @@ def test_refactor_posterior_and_mll_match_jax(y_warp):
     np.testing.assert_array_equal(r_t.raw.raw_lengthscale.numpy(), raw.raw_lengthscale)
 
 
-def test_routing_is_dense_without_a_mesh_and_refuses_one():
+def test_routing_is_dense_without_a_mesh_and_refuses_one(tmp_path):
+    from torch_mesh_cases import world1_group
+    from turbojax_torch.parallel import Mesh
+
     assert DL.should_distribute(1 << 20, None, budget_bytes=1) is False
+    # the rule alone, on a mesh of two (its group is never used)
+    two = Mesh(group=None, axis="rows", size=2, rank=0, device=torch.device("cpu"))
+    assert DL.should_distribute(64, two, budget_bytes=1) is True
+    assert DL.should_distribute(64, two) is False  # 3·64²·4 bytes is under the default budget
     x, y = _data(5)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DL.fit_gp_auto(torch.as_tensor(x), torch.as_tensor(y), CFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        BD.run_bo_distributed(_quad, [0.0] * D, [1.0] * D, BOConfig(n_init=8, max_evals=16, batch_size=4), CFG,
-                              mesh=object(), generator=_gen())
+    with world1_group(tmp_path) as mesh:
+        assert DL.should_distribute(1 << 20, mesh, budget_bytes=1) is False
+        g = DL.fit_gp_auto(torch.as_tensor(x), torch.as_tensor(y), CFG, mesh=mesh, budget_bytes=1, generator=_gen())
+        assert isinstance(g, DL._DenseGPAdapter)
+        three = Mesh(group=mesh.group, axis="rows", size=3, rank=0, device=mesh.device)
+        with pytest.raises(ValueError, match="multiples of the mesh size"):
+            BD.run_bo_distributed(_quad, [0.0] * D, [1.0] * D, BOConfig(n_init=8, max_evals=16, batch_size=4), CFG,
+                                  mesh=three, generator=_gen())
+        res = BD.run_bo_distributed(_quad, [0.0] * D, [1.0] * D, BOConfig(n_init=8, max_evals=16, batch_size=4),
+                                    CFG, mesh=mesh, budget_bytes=1, generator=_gen())
+        assert res.y_hist.shape == (16,) and bool(torch.isfinite(res.y_hist).all())
     assert BD._auto_panel(24) == 24 and BD._auto_panel(300) == 100 and BD._auto_panel(257) == 1
 
 

@@ -34,7 +34,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "mods = ['turbojax_torch', 'chip_smoke'] + ['turbojax_torch.' + m for m in ("
         "'acq', 'api', 'benchmarks', 'bo', 'config', 'convert', 'cuda_kernels', 'gp', 'kernel_bench', 'kernels', "
         "'linalg', 'registry', 'sampling', 'transforms', 'trust_region', 'turbo_m', 'profile_config5', "
-        "'bo_distributed', 'distributed_linalg', 'debug', 'plotting', 'runlog', 'checkpoint', 'bench_large_n', "
+        "'bo_distributed', 'distributed_linalg', 'parallel', 'debug', 'plotting', 'runlog', 'checkpoint', "
+        "'bench_large_n', "
         "'examples', 'examples.run_branin_ei', 'examples.run_hartmann6', 'examples.run_turbo1_ackley', "
         "'examples.run_turbom_rover', 'examples.run_ask_tell', 'examples.run_distributed_bo')]\n"
         "for m in mods: importlib.import_module(m)\n"

@@ -17,14 +17,16 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from turbojax_torch import checkpoint, debug, distributed_linalg  # noqa: E402
+from turbojax_torch import checkpoint, debug, distributed_linalg, parallel  # noqa: E402
 from turbojax_torch.api import Optimizer, Result, Turbo1, TurboM, optimize  # noqa: E402
 from turbojax_torch.bo import BOConfig, run_bo  # noqa: E402
 from turbojax_torch.bo_distributed import run_bo_distributed  # noqa: E402
 from turbojax_torch.config import GPConfig, TRConfig  # noqa: E402
-from turbojax_torch.distributed_linalg import fit_gp_auto, refactor_gp_auto  # noqa: E402
+from turbojax_torch.distributed_linalg import (  # noqa: E402
+    DistributedGP, fit_distributed_gp, fit_gp_auto, refactor_gp_auto,
+)
 from turbojax_torch.runlog import RunLog  # noqa: E402
 
-__all__ = ["BOConfig", "GPConfig", "Optimizer", "Result", "RunLog", "TRConfig", "Turbo1", "TurboM", "checkpoint",
-           "debug", "distributed_linalg", "fit_gp_auto", "optimize", "refactor_gp_auto", "run_bo",
-           "run_bo_distributed"]
+__all__ = ["BOConfig", "DistributedGP", "GPConfig", "Optimizer", "Result", "RunLog", "TRConfig", "Turbo1", "TurboM",
+           "checkpoint", "debug", "distributed_linalg", "fit_distributed_gp", "fit_gp_auto", "optimize", "parallel",
+           "refactor_gp_auto", "run_bo", "run_bo_distributed"]

@@ -8,9 +8,10 @@ original box to a (q,) tensor. The ``Optimizer`` takes and returns numpy
 arrays and keeps tensors on the device inside. Every entry point runs on the
 GPU unless the caller asks for the CPU. Runs checkpoint and resume
 (``checkpoint_*``, ``resume``, ``Optimizer.save``/``restore``) bit for bit.
-Meshes (``mesh=``) are not ported yet and raise ``NotImplementedError``
-(ROADMAP.md §1, item 3); ``budget_bytes=`` without a mesh changes nothing, as
-in the JAX package.
+``optimize(mesh=)`` (a ``parallel.Mesh``, one process per device) runs plain
+BO through ``bo_distributed.run_bo_distributed`` and TuRBO-m with its regions
+sharded (``parallel.run_turbom_sharded``); ``budget_bytes=`` without a mesh
+changes nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from turbojax_torch import bo as BO
 from turbojax_torch import checkpoint as CKPT
 from turbojax_torch import gp as G
 from turbojax_torch import linalg as L
+from turbojax_torch import parallel as PAR
 from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
 from turbojax_torch import trust_region as TR
@@ -127,18 +129,33 @@ def optimize(
     JAX package's signature. ``budget_bytes`` is the distributed route's
     per-device memory threshold, read only with a mesh: without one,
     ``method="bo"`` runs ``run_bo`` whatever it says, as the JAX package
-    does. ``mesh`` raises ``NotImplementedError``: the multi-device port
-    (ROADMAP.md §1, item 3) is not ported yet."""
+    does.
+
+    ``mesh`` (``parallel.make_mesh``; every rank calls ``optimize`` with
+    the same arguments, and the objective runs on rank 0): with
+    ``method="bo"`` the large-N loop, ``bo_distributed.run_bo_distributed``,
+    whose surrogate routes between the dense GP and the row-sharded
+    ``DistributedGP`` on the per-device memory threshold; ``acq`` ∈ {"ei",
+    "lcb", "ts"} ("ts" is the pathwise sampler) and ``n_init`` and
+    ``batch_size`` multiples of the mesh size. With ``method="turbom"`` the
+    m trust regions are sharded across the mesh
+    (``parallel.run_turbom_sharded``); m must be a multiple of the mesh
+    size, and checkpointing is refused. ``method="turbo1"`` has no axis to
+    shard and refuses a mesh. The run is on ``mesh.device``; ``device`` or
+    ``generator`` must agree with it. Every rank gets the whole result."""
     if method not in ("bo", "turbo1", "turbom"):
         raise ValueError(f"unknown method {method!r}")
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: the multi-device port (distributed_linalg, parallel and mesh= in optimize) "
-            "is ROADMAP.md §1, item 3; without a mesh, method='bo' runs run_bo whatever budget_bytes says"
-        )
+        if method not in ("bo", "turbom"):
+            raise ValueError(
+                "mesh= supports method='bo' (row-block-sharded distributed surrogate) and method='turbom' "
+                "(trust-region axis sharded via parallel.run_turbom_sharded); turbo1 has no device axis to "
+                "shard; use the candidate-axis helpers in turbojax_torch.parallel"
+            )
+        device = PAR.mesh_device(mesh, device, generator)
     if generator is None:
         generator = torch.Generator(device=_resolve_device(device, "optimize")).manual_seed(seed)
-    elif device is not None and torch.device(device) != generator.device:
+    elif device is not None and not PAR.same_device(device, generator.device):
         raise ValueError(f"device {device} differs from the generator's {generator.device}")
 
     lb_t, ub_t = tuple(float(v) for v in lb), tuple(float(v) for v in ub)
@@ -151,12 +168,34 @@ def optimize(
             n_init=n_init, max_evals=max_evals, batch_size=batch_size, acq=acq, fit_every=fit_every,
             n_candidates=n_candidates or S.n_candidates(dim), ts_chunk=ts_chunk,
         )
+        if mesh is not None:
+            from turbojax_torch.bo_distributed import run_bo_distributed
+
+            kw = {} if budget_bytes is None else {"budget_bytes": budget_bytes}
+            res = run_bo_distributed(fn, lb_t, ub_t, cfg, gp_config, mesh, generator=generator, **ckpt, **kw)
+            return Result(
+                best_x=res.best_x.cpu().numpy(), best_y=float(res.best_y), x_hist=res.x_hist.cpu().numpy(),
+                y_hist=res.y_hist.cpu().numpy(), incumbent_trace=res.incumbent_trace.cpu().numpy(),
+            )
         return bo_result(BO.run_bo(fn, lb_t, ub_t, cfg, gp_config, generator, **ckpt))
     cfg = TR.TurboConfig(
         n_init=n_init, max_evals=max_evals, batch_size=batch_size,
         n_candidates=n_candidates, fit_every=fit_every, ts_chunk=ts_chunk, tr=tr_config,
     )
-    if method == "turbom":
+    if method == "turbom" and mesh is not None:
+        if m % mesh.size:
+            raise ValueError(
+                f"method='turbom' with mesh= shards the m={m} trust regions across {mesh.size} devices; m must be "
+                "a multiple of the mesh size"
+            )
+        if checkpoint_path:
+            raise ValueError(
+                "checkpointing is not supported on the TR-sharded turbom path; use mesh=None (the host loop) "
+                "for checkpointed runs"
+            )
+        carries, trace = PAR.run_turbom_sharded(fn, lb_t, ub_t, cfg, gp_config, mesh, m=m, generator=generator)
+        carries = PAR.gather_carries(carries, mesh)
+    elif method == "turbom":
         carries, trace = TM.run_turbom(fn, lb_t, ub_t, cfg, gp_config, m, generator, **ckpt)
     else:
         carries, trace = TR.run_turbo1(fn, lb_t, ub_t, cfg, gp_config, generator, **ckpt)

@@ -4,6 +4,7 @@ points, d = 10, 5000 candidates, q = 10), timed on the card.
 
     python3 -m turbojax_torch.bench_large_n [--ns 4096 8192 16384] [--reps 3]
     python3 -m turbojax_torch.bench_large_n --rules
+    python3 -m turbojax_torch.bench_large_n --budget
 
 Rows per N, Matérn-5/2 at the default hypers (one JSON line per N):
 
@@ -29,6 +30,11 @@ example objective of ``turbojax_torch/examples/run_distributed_bo.py``,
 5000 candidates, q = 10, a 5-step Adam fit every iteration): its wall, the
 device's busy time and idle share, device time by kernel family, and the
 fit's backward (the autograd engine's nodes).
+
+``--budget`` measures the peak device memory of the default dense fit
+(L-BFGS, 4 restarts; one iteration, whose loss evaluations all have the
+fit's working set) at each N, beside the 3 N² · 4 bytes the multi-device
+routing rule counts (``distributed_linalg.DENSE_BUDGET_BYTES``).
 
 ``--rules`` measures the two TPU-sized constants these sizes meet: the grid
 fit in both branches (rows as one batch and one after another) at N = 1024, 2048,
@@ -207,6 +213,33 @@ def rules(smi: str, reps: int = 3, emit: Callable[[Dict[str, object]], None] = p
         torch.cuda.empty_cache()
 
 
+# The default dense fit (L-BFGS, 4 restarts as one batch of lanes) cut to one
+# iteration and one line-search probe: every loss evaluation of the fit has
+# the same working set, so its peak is the whole fit's
+BUDGET_FIT = dataclasses.replace(CONFIG, fit_maxiter=1, fit_linesearch_steps=1)
+
+
+def budget_rows(smi: str, ns: Sequence[int] = NS, emit: Callable[[Dict[str, object]], None] = print) -> None:
+    """The peak device memory of the default dense fit at each N beside the
+    routing rule's 3 N² · 4 bytes (``distributed_linalg.should_distribute``),
+    the measurement behind ``DENSE_BUDGET_BYTES``."""
+    from turbojax_torch import distributed_linalg as DL
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in ns:
+        x, y, mask, _ = problem(n, gen)
+        torch.cuda.empty_cache()
+        res = _measure_or_oom(lambda: G.fit_gp(x, y, mask, BUDGET_FIT, generator=gen), 1)
+        res.pop("out", None)
+        rule = 3 * n * n * 4
+        emit({"rule": "dense_budget", "n": n, "lanes": CONFIG.fit_restarts, "rule_gib": rule / _GIB,
+              "peak_over_rule": res["peak_gib"] * _GIB / rule, "budget_gib": DL.DENSE_BUDGET_BYTES / _GIB,
+              "dense_route_on_a_mesh": rule <= DL.DENSE_BUDGET_BYTES,
+              "card_gib": torch.cuda.get_device_properties(gen.device).total_memory / _GIB, **res, "card": smi})
+        del x, y, mask
+        torch.cuda.empty_cache()
+
+
 class _Stop(Exception):
     """Ends the loop right after the traced iteration."""
 
@@ -265,6 +298,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rules", action="store_true", help="only the grid-branch and posterior-chunk measurements")
     ap.add_argument("--profile-iteration", action="store_true", help="only the traced pathwise-loop iteration")
+    ap.add_argument("--budget", action="store_true",
+                    help="only the default dense fit's peak memory at each N (DENSE_BUDGET_BYTES)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("bench_large_n measures the card: torch.cuda.is_available() is False")
@@ -278,6 +313,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         rules(smi, args.reps, emit)
     elif args.profile_iteration:
         profile_loop_iteration(smi, emit=emit)
+    elif args.budget:
+        budget_rows(smi, args.ns, emit)
     else:
         component_rows(smi, args.ns, args.reps, emit=emit)
     return 0

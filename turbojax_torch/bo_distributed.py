@@ -2,23 +2,32 @@
 
 ``run_bo_distributed`` is the plain BO loop over an unmasked, growing
 history, with the surrogate routed through ``distributed_linalg.fit_gp_auto``
-and ``refactor_gp_auto``. On one device that is always the dense route: the
-fit's loss and every factorization build K(X, X) through
-``cuda_kernels.kernel_matrix`` on CUDA tensors, and the pathwise sampler's
-cross k(x*, X) goes through the same kernel. Acquisition is EI or LCB over a
-fresh candidate set against the posterior, or batch Thompson sampling by the
-decoupled pathwise sampler (``acq.pathwise_paths``): the chunked exact
-sampler factorizes chunk² candidate covariances that the distributed
-posterior never forms, so ``acq="ts"`` always routes to pathwise and
-``ts_sampler="rff"`` is rejected. ``GPConfig.y_warp`` is honoured: the
-surrogate models ``warp_y(y)`` and the EI incumbent is warped at the same
-point.
+and ``refactor_gp_auto``: the dense GP without a mesh, on a mesh of one
+device or below the memory threshold; above it on a larger mesh, the
+row-sharded ``DistributedGP`` (in-shard kernel builds, blocked Cholesky, an
+Adam fit of the distributed MLL). Every kernel-matrix build, dense or a row
+block, goes through ``cuda_kernels.kernel_matrix`` on CUDA tensors.
+Acquisition is EI or LCB over a fresh candidate set against the posterior
+(with the candidate axis sharded across the mesh above ``CAND_SHARD_MIN``
+candidates when the GP is dense: ``parallel.sharded_acq_topq``), or batch
+Thompson sampling by the decoupled pathwise sampler
+(``acq.pathwise_paths``, ``distributed_linalg.distributed_pathwise_paths``):
+the chunked exact sampler factorizes chunk² candidate covariances that the
+distributed posterior never forms, so ``acq="ts"`` always routes to
+pathwise and ``ts_sampler="rff"`` is rejected. ``GPConfig.y_warp`` is
+honoured: the surrogate models ``warp_y(y)`` and the EI incumbent is warped
+at the same point.
+
+With a mesh every rank runs the loop with the same arguments and a
+generator in the same state (``parallel``'s layout contract), so the
+replicated draws agree; rank 0 evaluates the objective and broadcasts its
+values, and rank 0 alone writes the checkpoint, followed by a barrier,
+while every rank reads it on resume.
 
 The loop runs on the host: at this scale one fit is seconds of device time,
 and the history grows by a batch each iteration. Every random draw comes
 from ``generator`` or is handed in (``x_init`` and ``draws``), which lets the
-tests replay the JAX package's keys. A mesh raises ``NotImplementedError``
-(the multi-device port, ROADMAP.md §1, item 3).
+tests replay the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -30,19 +39,21 @@ import torch
 
 from turbojax_torch import acq as A
 from turbojax_torch import gp as G
+from turbojax_torch import parallel as PAR
 from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
 from turbojax_torch.api import _resolve_device
 from turbojax_torch.bo import BOConfig, lowest_k
 from turbojax_torch.config import GPConfig
-from turbojax_torch.distributed_linalg import DENSE_BUDGET_BYTES, fit_gp_auto, refactor_gp_auto
+from turbojax_torch.distributed_linalg import DENSE_BUDGET_BYTES, DistributedGP, fit_gp_auto, refactor_gp_auto
 
 Tensor = torch.Tensor
 
 #: Candidate count below which a multi-device mesh does not shard the
-#: candidate axis. The JAX package's value, measured on an 8-device CPU
-#: simulation; one device never shards, so it is re-measured with the
-#: multi-device port.
+#: candidate axis (``BOConfig.cand_shard_min`` overrides it; 0 always
+#: shards). The JAX package's value, measured on its 8-device CPU
+#: simulation (at 5000 candidates sharding lost, from ~32k it paid). A mesh
+#: of one device never shards, so one card cannot re-measure it.
 CAND_SHARD_MIN = 32768
 
 
@@ -77,7 +88,7 @@ def run_bo_distributed(
     ub: Sequence[float],
     bo: BOConfig,
     config: GPConfig = GPConfig(),
-    mesh=None,
+    mesh: Optional[PAR.Mesh] = None,
     budget_bytes: int = DENSE_BUDGET_BYTES,
     on_iteration: Optional[Callable[[int, float], None]] = None,
     fixed_params: Optional[G.GPParams] = None,
@@ -91,8 +102,9 @@ def run_bo_distributed(
     x_init: Optional[Tensor] = None,
     draws: Optional[Callable[[int], IterationDraws]] = None,
 ) -> BigBOResult:
-    """The BO loop with the surrogate auto-routed (the dense route on one
-    device). ``fn`` maps a (q, d) tensor in the box to a (q,) tensor.
+    """The BO loop with the surrogate auto-routed over ``mesh`` (see the
+    module docstring). ``fn`` maps a (q, d) tensor in the box to a (q,)
+    tensor; with a mesh it runs on rank 0 only.
     ``bo.acq`` is "ei", "lcb" or "ts" (the pathwise sampler, with
     ``bo.rff_features`` prior features). Failures (NaN/inf y) are imputed
     against the history.
@@ -103,13 +115,16 @@ def run_bo_distributed(
     and else refactorizes at the pinned hypers over the grown history.
 
     Runs on ``generator.device``, or on ``device`` with a generator seeded
-    with 0; the default device is the GPU, and the CPU runs only when asked
-    for. ``x_init`` ((n_init, d), unit cube) replaces the initial Latin
-    hypercube, and ``draws(it)`` gives iteration ``it``'s ``IterationDraws``.
-    ``checkpoint_path`` with ``checkpoint_every=k`` saves the history, the
-    pinned hypers and the generator's state every k iterations (and after
-    the last); ``resume=True`` restores them, the leaves at the shapes in the
-    file, and continues the uninterrupted run bit for bit.
+    with 0; the default device is the GPU (with a mesh, ``mesh.device``),
+    and the CPU runs only when asked for. With a mesh, ``n_init`` and
+    ``batch_size`` must be multiples of its size (the distributed history
+    is row-sharded without masking). ``x_init`` ((n_init, d), unit cube)
+    replaces the initial Latin hypercube, and ``draws(it)`` gives iteration
+    ``it``'s ``IterationDraws``. ``checkpoint_path`` with
+    ``checkpoint_every=k`` saves the history, the pinned hypers and the
+    generator's state every k iterations (and after the last; with a mesh,
+    rank 0 writes); ``resume=True`` restores them, the leaves at the shapes
+    in the file, and continues the uninterrupted run bit for bit.
     ``on_iteration(it, best)`` is called with the incumbent as a float;
     ``runlog`` receives one record per iteration: ``best_y``, the history
     size ``n``, the ``route`` and the iteration's wall ``iter_s``."""
@@ -123,15 +138,17 @@ def run_bo_distributed(
             "noise floor and the exact-conditioning pathwise sampler costs the same matmuls; use "
             "ts_sampler='pathwise' (or leave the default: 'ts' always routes to the pathwise sampler here)"
         )
-    n_dev = 1  # a mesh is rejected by the routing (distributed_linalg.should_distribute)
+    n_dev = mesh.size if mesh is not None else 1
     if bo.n_init % n_dev or bo.batch_size % n_dev:
         raise ValueError(
             f"n_init ({bo.n_init}) and batch_size ({bo.batch_size}) must be multiples of the mesh size ({n_dev}): "
             "the distributed history is row-sharded without masking"
         )
+    if mesh is not None:
+        device = PAR.mesh_device(mesh, device, generator)
     if generator is None:
         generator = torch.Generator(device=_resolve_device(device, "run_bo_distributed")).manual_seed(0)
-    elif device is not None and torch.device(device) != generator.device:
+    elif device is not None and not PAR.same_device(device, generator.device):
         raise ValueError(f"device {device} differs from the generator's {generator.device}")
     device = generator.device
     dim = len(lb)
@@ -140,7 +157,10 @@ def run_bo_distributed(
     q = bo.batch_size
 
     def evaluate(x_unit: Tensor) -> Tensor:
-        return fn(T.from_unit_cube(x_unit, lb_t, ub_t)).to(dtype).reshape(-1)
+        x = T.from_unit_cube(x_unit, lb_t, ub_t)
+        if mesh is not None:
+            return PAR.evaluate_on_rank0(fn, x, mesh)
+        return fn(x).to(dtype).reshape(-1)
 
     def pinned() -> G.GPParams:
         return fixed_params if fixed_params is not None else G.default_params(dim, config, dtype, device)
@@ -158,7 +178,7 @@ def run_bo_distributed(
                                torch.zeros(1, dtype=torch.bool, device=device))
         return {"x": x0, "y": y0, "warm": None}
 
-    ckpt = RunCheckpointer(checkpoint_path, checkpoint_every, generator)
+    ckpt = RunCheckpointer(checkpoint_path, checkpoint_every, generator, mesh)
     state, trace = ckpt.start(resume, like, torch.empty(0, dtype=dtype, device=device), fresh)
     x_hist, y_hist, warm = state["x"], state["y"], state["warm"]
 
@@ -199,22 +219,37 @@ def run_bo_distributed(
             local = inc + bo.local_sigma * noise.to(dtype=dtype, device=device)
             cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
 
+        distributed = isinstance(g, DistributedGP)
         if bo.acq == "ts":
             # pathwise draws, globally joint over the candidates, conditioned
-            # exactly through the cached factor; the warp is monotone in y,
-            # so the argmin selection is unchanged
-            values = A.pathwise_paths(g.state, cands, q, config, bo.rff_features, generator, d_it.ts)
+            # exactly through the cached (dense or row-sharded) factor; the
+            # warp is monotone in y, so the argmin selection is unchanged
+            if distributed:
+                values = g.pathwise_paths(cands, q, bo.rff_features, generator, d_it.ts)
+            else:
+                values = A.pathwise_paths(g.state, cands, q, config, bo.rff_features, generator, d_it.ts)
             x_new = cands[A.select_q_batch(values)[0]]
         else:
             # the surrogate predicts warp_y(y), so the EI incumbent is warped
             # too (monotone: the warp commutes with min)
             best = T.warp_y(y_hist.min(), config.y_warp)
-            mu, var = g.posterior(cands)
-            if bo.acq == "ei":
-                scores = -A.expected_improvement(mu, var, best, bo.xi)
+            n_cand = cands.shape[0]
+            cand_min = bo.cand_shard_min if bo.cand_shard_min is not None else CAND_SHARD_MIN
+            if (n_dev > 1 and not distributed and n_cand % n_dev == 0 and q <= n_cand // n_dev
+                    and n_cand >= cand_min):
+                # the candidate axis sharded: the dense state is replicated,
+                # each rank scores its block, and the global top-q rides an
+                # all-gather of q·D survivors
+                shard = n_cand // n_dev
+                x_new, _ = PAR.sharded_acq_topq(g.state, cands[mesh.rank * shard:(mesh.rank + 1) * shard], best, q,
+                                                mesh, config, acq=bo.acq, kappa=bo.kappa, xi=bo.xi)
             else:
-                scores = A.lower_confidence_bound(mu, var, bo.kappa)
-            x_new = cands[lowest_k(scores, q)]
+                mu, var = g.posterior(cands)
+                if bo.acq == "ei":
+                    scores = -A.expected_improvement(mu, var, best, bo.xi)
+                else:
+                    scores = A.lower_confidence_bound(mu, var, bo.kappa)
+                x_new = cands[lowest_k(scores, q)]
 
         y_new = T.impute_failures(evaluate(x_new), y_hist, torch.ones_like(y_hist, dtype=torch.bool))
         x_hist = torch.cat([x_hist, x_new], dim=0)
@@ -225,7 +260,8 @@ def run_bo_distributed(
             if on_iteration is not None:
                 on_iteration(it, best_f)
             if runlog is not None:
-                runlog.log(it, best_y=best_f, n=int(x_hist.shape[0]), route="dense",
+                runlog.log(it, best_y=best_f, n=int(x_hist.shape[0]),
+                           route="distributed" if distributed else "dense",
                            iter_s=round(time.perf_counter() - t_it, 4))
         ckpt.maybe_save(it + 1, {"x": x_hist, "y": y_hist, "warm": warm}, trace, last=it + 1 == bo.n_iters)
 

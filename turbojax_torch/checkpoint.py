@@ -112,12 +112,16 @@ class RunCheckpointer:
     ``{"carry": <loop carry>, "rng": generator.get_state(), "trace": (it,)}``,
     so a restored loop continues the uninterrupted run bit for bit. Saves
     are atomic (written to a temporary name, then renamed), so a crash
-    mid-save leaves the last good checkpoint."""
+    mid-save leaves the last good checkpoint. With a ``mesh`` (a
+    ``parallel.Mesh`` whose ranks hold the same carry), rank 0 alone writes
+    and every rank waits at a barrier after each save, so that none races
+    past a half-written file; every rank reads on resume."""
 
-    def __init__(self, path: Optional[str], every: int, generator: torch.Generator):
+    def __init__(self, path: Optional[str], every: int, generator: torch.Generator, mesh=None):
         self.path = path
         self.every = every
         self.generator = generator
+        self.mesh = mesh
         self._last_saved = 0
 
     def start(self, resume: bool, like: Callable[[], Any], trace_like: torch.Tensor,
@@ -144,9 +148,14 @@ class RunCheckpointer:
             return
         if it_done - self._last_saved < self.every and not last:
             return
-        tmp = _base(self.path) + ".tmp"
-        unit = {"carry": carry, "rng": self.generator.get_state(), "trace": torch.stack(list(trace))}
-        save_state(tmp, unit, meta={"it": it_done})
-        os.replace(tmp + ".npz", _base(self.path) + ".npz")
-        os.replace(tmp + _SUFFIX_META, _base(self.path) + _SUFFIX_META)
+        if self.mesh is None or self.mesh.rank == 0:
+            tmp = _base(self.path) + ".tmp"
+            unit = {"carry": carry, "rng": self.generator.get_state(), "trace": torch.stack(list(trace))}
+            save_state(tmp, unit, meta={"it": it_done})
+            os.replace(tmp + ".npz", _base(self.path) + ".npz")
+            os.replace(tmp + _SUFFIX_META, _base(self.path) + _SUFFIX_META)
+        if self.mesh is not None:
+            from turbojax_torch.parallel import barrier
+
+            barrier(self.mesh)
         self._last_saved = it_done

@@ -5,6 +5,13 @@
 //
 //     out[b] = s_b * k(z1[b], z2[b])  (+ noise_b on the global diagonal i == j)
 //
+// or, for a row block of a larger matrix (exact = 1, rows i of the block
+// being rows i + diag_offset of the whole), the same with the entries on its
+// global diagonal j == i + diag_offset set to the exact self-value s_b
+// (+ noise_b): a cross build of the block against all of Z computes those
+// entries from two copies of one point, and the caller's global diagonal
+// must not depend on how the matrix was cut into blocks.
+//
 // with z1 (B, n, d), z2 (B, m, d) already divided by the lengthscales and
 // centered by the caller, k one of rbf / matern12 / matern32 / matern52, and
 // s_b = scale[b * scale_stride], noise_b = noise[b * noise_stride] read on
@@ -52,7 +59,7 @@ template <typename T, int KID, bool NOISE>
 __global__ void __launch_bounds__(S::THREADS, sizeof(T) == 4 ? 4 : 1)
 kernel_matrix_tile(const T* __restrict__ z1, const T* __restrict__ z2, const T* __restrict__ scale,
                    int scale_stride, const T* __restrict__ noise, int noise_stride, T* __restrict__ out,
-                   int n, int m, int d, int col_tiles, int symmetric, int vec) {
+                   int n, int m, int d, int col_tiles, int symmetric, int vec, int diag_offset, int exact) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
@@ -69,17 +76,22 @@ kernel_matrix_tile(const T* __restrict__ z1, const T* __restrict__ z2, const T* 
   out += (size_t)b * n * m;
 
   T k[S::TM][S::TM];
-  tile::kernel_tile<T, KID>(k, smem, z1 + (size_t)b * n * d, z2 + (size_t)b * m * d, row0, col0, n, m, d,
-                            scale[(size_t)b * scale_stride]);
-  if (NOISE && ti == tj) {
-    const T nz = noise[(size_t)b * noise_stride];
+  const T s = scale[(size_t)b * scale_stride];
+  tile::kernel_tile<T, KID>(k, smem, z1 + (size_t)b * n * d, z2 + (size_t)b * m * d, row0, col0, n, m, d, s);
+  // the global diagonal j == i + diag_offset crosses this tile (with offset 0: ti == tj)
+  const long long shift = (long long)row0 + diag_offset - col0;
+  if ((NOISE || exact) && shift > -S::TILE && shift < S::TILE) {
+    const T nz = NOISE ? noise[(size_t)b * noise_stride] : T(0);
     const int ty = threadIdx.x / S::SIDE;
     const int tx = threadIdx.x % S::SIDE;
 #pragma unroll
     for (int i = 0; i < S::TM; ++i) {
 #pragma unroll
       for (int j = 0; j < S::TM; ++j) {
-        if (S::index(ty, i) == S::index(tx, j)) k[i][j] = dev_add(k[i][j], nz);
+        if (S::index(ty, i) + shift == S::index(tx, j)) {
+          if (exact) k[i][j] = s;
+          if (NOISE) k[i][j] = dev_add(k[i][j], nz);
+        }
       }
     }
   }
@@ -89,7 +101,7 @@ kernel_matrix_tile(const T* __restrict__ z1, const T* __restrict__ z2, const T* 
 template <typename T, int KID>
 cudaError_t launch_kid(const T* z1, const T* z2, const T* scale, int scale_stride, const T* noise,
                        int noise_stride, T* out, int batch, int n, int m, int d, bool symmetric, bool add_noise,
-                       bool vec, cudaStream_t stream) {
+                       bool vec, int diag_offset, int exact, cudaStream_t stream) {
   const int kmax = d < tile::DK ? d : tile::DK;
   const size_t smem = (size_t)(2 * kmax * S::LDZ > S::TILE * S::LDT ? 2 * kmax * S::LDZ : S::TILE * S::LDT) *
                       sizeof(T);
@@ -103,14 +115,15 @@ cudaError_t launch_kid(const T* z1, const T* z2, const T* scale, int scale_strid
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)blocks, 1, (unsigned)batch);
   kernel<<<grid, S::THREADS, smem, stream>>>(z1, z2, scale, scale_stride, noise, noise_stride, out, n, m, d,
-                                             (int)col_tiles, symmetric ? 1 : 0, vec ? 1 : 0);
+                                             (int)col_tiles, symmetric ? 1 : 0, vec ? 1 : 0, diag_offset, exact);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* z1, const void* z2, const void* scale, int scale_stride,
                          const void* noise, int noise_stride, void* out, int batch, int n, int m, int d,
-                         int kernel_id, bool symmetric, bool add_noise, cudaStream_t stream) {
+                         int kernel_id, bool symmetric, bool add_noise, int diag_offset, int exact,
+                         cudaStream_t stream) {
   const T* a = static_cast<const T*>(z1);
   const T* b = static_cast<const T*>(z2);
   const T* s = static_cast<const T*>(scale);
@@ -120,16 +133,16 @@ cudaError_t launch_typed(const void* z1, const void* z2, const void* scale, int 
   switch (kernel_id) {
     case RBF:
       return launch_kid<T, RBF>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
-                                add_noise, vec, stream);
+                                add_noise, vec, diag_offset, exact, stream);
     case MATERN12:
       return launch_kid<T, MATERN12>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
-                                     add_noise, vec, stream);
+                                     add_noise, vec, diag_offset, exact, stream);
     case MATERN32:
       return launch_kid<T, MATERN32>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
-                                     add_noise, vec, stream);
+                                     add_noise, vec, diag_offset, exact, stream);
     case MATERN52:
       return launch_kid<T, MATERN52>(a, b, s, scale_stride, nz, noise_stride, o, batch, n, m, d, symmetric,
-                                     add_noise, vec, stream);
+                                     add_noise, vec, diag_offset, exact, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -141,19 +154,24 @@ extern "C" {
 
 // Returns 0 on success, otherwise the cudaError_t of the refused launch.
 // symmetric needs z2 == z1 (so n == m) and launches the upper tiles only.
-// is_double selects the float (0) or double (1) instantiation.
+// is_double selects the float (0) or double (1) instantiation. The global
+// diagonal, where noise goes and (exact = 1) the exact self-value, is
+// j == i + diag_offset (0 for a whole matrix, the block's first row for a
+// row block).
 int kernel_matrix_launch(const void* z1, const void* z2, const void* scale, int scale_stride,
                          const void* noise, int noise_stride, void* out, int batch, int n, int m, int d,
-                         int symmetric, int kernel_id, int add_noise, int is_double, void* stream) {
-  if (batch <= 0 || batch > 65535 || n <= 0 || m <= 0 || d < 0 || scale_stride < 0 || noise_stride < 0)
+                         int symmetric, int kernel_id, int add_noise, int is_double, int diag_offset, int exact,
+                         void* stream) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || m <= 0 || d < 0 || scale_stride < 0 || noise_stride < 0 ||
+      diag_offset < 0)
     return (int)cudaErrorInvalidValue;
-  if (symmetric && (n != m || z1 != z2)) return (int)cudaErrorInvalidValue;
+  if (symmetric && (n != m || z1 != z2 || diag_offset != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       is_double ? launch_typed<double>(z1, z2, scale, scale_stride, noise, noise_stride, out, batch, n, m, d,
-                                       kernel_id, symmetric != 0, add_noise != 0, s)
+                                       kernel_id, symmetric != 0, add_noise != 0, diag_offset, exact != 0, s)
                 : launch_typed<float>(z1, z2, scale, scale_stride, noise, noise_stride, out, batch, n, m, d,
-                                      kernel_id, symmetric != 0, add_noise != 0, s);
+                                      kernel_id, symmetric != 0, add_noise != 0, diag_offset, exact != 0, s);
   return (int)err;
 }
 

@@ -6,9 +6,10 @@ library, built for sm_90a with ``nvcc`` on first use (all sources at once,
 one ``nvcc`` each, started together) and bound with ``ctypes``. Both share
 the register-tiled fp32 mainloop of ``csrc/tile_mainloop.cuh``:
 
-* ``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise)``,
-  ``csrc/kernel_matrix.cu``: every kernel-matrix build of the GP goes
-  through it; its plain version is ``kernel_matrix_reference``, the twin of
+* ``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise,
+  diag_offset)``, ``csrc/kernel_matrix.cu``: every kernel-matrix build of
+  the GP goes through it, the row blocks of the distributed GP too; its
+  plain version is ``kernel_matrix_reference``, the twin of
   ``turbojax.pallas_kernels._jnp_reference_kernel``;
 * ``ts_cov(zs, v, outputscale, jitter, kernel_name)``, ``csrc/ts_cov.cu``:
   the Thompson-chunk covariance k(zs, zs) − vᵀv + jitter·I of
@@ -125,8 +126,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
     launch = getattr(lib, f"{name}_launch")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "kernel_matrix":
-        # z1, z2, scale, stride, noise, stride, out, batch, n, m, d, symmetric, kernel, add_noise, double, stream
-        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, *[i32] * 8, ptr]
+        # z1, z2, scale, stride, noise, stride, out, batch, n, m, d, symmetric, kernel, add_noise, double,
+        # diag_offset, exact, stream
+        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, *[i32] * 10, ptr]
     else:
         # zs, v, scale, stride, jitter, stride, out, workspace, batch, m, n, d, splits, chunk, lead, kernel, double,
         # stream
@@ -295,22 +297,29 @@ def _per_batch(value: Tensor, batch: int, what: str) -> Tuple[Tensor, int]:
 
 def kernel_matrix_reference(
     z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
-    kernel_name: str = "matern52", add_noise: bool = False,
+    kernel_name: str = "matern52", add_noise: bool = False, diag_offset: Optional[int] = None,
 ) -> Tensor:
     """The plain PyTorch version of the kernel on pre-scaled inputs
     (lengthscale already divided out): ``k(z1, z2)`` (+ noise on the global
     diagonal). Inputs are (n, d)/(m, d) or batched (B, n, d)/(B, m, d);
-    ``outputscale`` and ``noise`` are scalars or (B,)."""
+    ``outputscale`` and ``noise`` are scalars or (B,). ``diag_offset``: z1
+    is a row block whose row i is row i + diag_offset of the whole; the
+    global diagonal j == i + diag_offset takes the exact self-value
+    outputscale (+ noise) there."""
     if z1.dim() == 3:
         outputscale = torch.as_tensor(outputscale, dtype=z1.dtype, device=z1.device)
         noise = torch.as_tensor(noise, dtype=z1.dtype, device=z1.device)
         outputscale = outputscale.reshape(-1, 1, 1)
         noise = noise.reshape(-1, 1, 1)
     k = K.from_sqdist(kernel_name, K.pairwise_sqdist(z1, z2), outputscale)
-    if add_noise:
-        eye = torch.eye(z1.shape[-2], z2.shape[-2], dtype=k.dtype, device=k.device)
-        k = k + noise * eye
-    return k
+    n, m = z1.shape[-2], z2.shape[-2]
+    if diag_offset is None:
+        if add_noise:
+            k = k + noise * torch.eye(n, m, dtype=k.dtype, device=k.device)
+        return k
+    on = torch.arange(n, device=k.device)[:, None] + diag_offset == torch.arange(m, device=k.device)[None, :]
+    k = torch.where(on, outputscale, k)
+    return k + noise * on.to(k.dtype) if add_noise else k
 
 
 def _check(z1: Tensor, z2: Tensor, kernel_name: str):
@@ -338,7 +347,7 @@ def _kernel_matrix_args(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tens
 
 
 def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
-            kernel_name: str, add_noise: bool, same: bool) -> Tensor:
+            kernel_name: str, add_noise: bool, same: bool, diag_offset: Optional[int] = None) -> Tensor:
     """Launch the CUDA kernel on (n, d)/(m, d) or (B, n, d)/(B, m, d) CUDA
     tensors: one call into the library."""
     global LAUNCHES, LAUNCHES_F64
@@ -348,6 +357,8 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
         raise ValueError("the CUDA kernel takes contiguous inputs")
     if z1.shape[-2] == 0 or z2.shape[-2] == 0 or (z1.dim() == 3 and z1.shape[0] == 0):
         return torch.empty((*z1.shape[:-1], z2.shape[-2]), dtype=z1.dtype, device=z1.device)
+    # the symmetric schedule mirrors tiles about i == j: not for a row block's offset diagonal
+    same = same and not diag_offset
     a, b, (scale, scale_stride), (nz, noise_stride), plan = _kernel_matrix_args(z1, z2, outputscale, noise, same)
     batch, n, d = a.shape
     m = b.shape[1]
@@ -358,7 +369,8 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
         err = lib.kernel_matrix_launch(
             a.data_ptr(), b.data_ptr(), scale.data_ptr(), scale_stride, nz.data_ptr(), noise_stride,
             out.data_ptr(), batch, n, m, d, int(plan.symmetric), KERNEL_IDS[kernel_name],
-            int(add_noise), int(z1.dtype == torch.float64), torch.cuda.current_stream(index).cuda_stream,
+            int(add_noise), int(z1.dtype == torch.float64), diag_offset or 0, int(diag_offset is not None),
+            torch.cuda.current_stream(index).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -369,12 +381,12 @@ def _launch(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tensor,
     return out if z1.dim() == 3 else out[0]
 
 
-def _forward(z1, z2, outputscale, noise, kernel_name, add_noise, same):
+def _forward(z1, z2, outputscale, noise, kernel_name, add_noise, same, diag_offset):
     if z1.device.type == "cpu":
-        return kernel_matrix_reference(z1, z2, outputscale, noise, kernel_name, add_noise)
+        return kernel_matrix_reference(z1, z2, outputscale, noise, kernel_name, add_noise, diag_offset)
     if z1.device.type != "cuda":
         raise ValueError(f"kernel_matrix runs on CUDA or CPU tensors, not {z1.device}")
-    return _launch(z1, z2, outputscale, noise, kernel_name, add_noise, same)
+    return _launch(z1, z2, outputscale, noise, kernel_name, add_noise, same, diag_offset)
 
 
 class KernelMatrix(torch.autograd.Function):
@@ -382,10 +394,10 @@ class KernelMatrix(torch.autograd.Function):
     Backward: the plain version recomputed under autograd."""
 
     @staticmethod
-    def forward(ctx, z1, z2, outputscale, noise, kernel_name, add_noise):
-        ctx.kernel_name, ctx.add_noise, ctx.same = kernel_name, add_noise, z2 is z1
+    def forward(ctx, z1, z2, outputscale, noise, kernel_name, add_noise, diag_offset=None):
+        ctx.kernel_name, ctx.add_noise, ctx.same, ctx.diag_offset = kernel_name, add_noise, z2 is z1, diag_offset
         ctx.save_for_backward(z1, z2, outputscale, noise)
-        return _forward(z1, z2, outputscale, noise, kernel_name, add_noise, ctx.same)
+        return _forward(z1, z2, outputscale, noise, kernel_name, add_noise, ctx.same, diag_offset)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -394,29 +406,37 @@ class KernelMatrix(torch.autograd.Function):
             leaves = [t.detach().requires_grad_(t.requires_grad) for t in (z1, z2, outputscale, noise)]
             if ctx.same:
                 leaves[1] = leaves[0]  # K(Z, Z): one input, one gradient
-            k = kernel_matrix_reference(*leaves, ctx.kernel_name, ctx.add_noise)
+            k = kernel_matrix_reference(*leaves, ctx.kernel_name, ctx.add_noise, ctx.diag_offset)
             wanted = [i for i, t in enumerate(leaves) if t.requires_grad and not (ctx.same and i == 1)]
             grads = torch.autograd.grad(k, [leaves[i] for i in wanted], grad_out, allow_unused=True)
         out = [None, None, None, None]
         for i, g in zip(wanted, grads):
             out[i] = g
-        return (*out, None, None)
+        return (*out, None, None, None)
 
 
 def kernel_matrix(
     z1: Tensor, z2: Tensor, outputscale, noise,
-    kernel_name: str = "matern52", add_noise: bool = False,
+    kernel_name: str = "matern52", add_noise: bool = False, diag_offset: Optional[int] = None,
 ) -> Tensor:
     """K = k(z1, z2) (+ noise on the diagonal i == j) for pre-scaled,
     centered inputs, (n, d)/(m, d) -> (n, m) or batched (B, n, d)/(B, m, d)
     -> (B, n, m) with ``outputscale``/``noise`` scalars or (B,) tensors.
 
+    ``diag_offset`` (an int ≥ 0): z1 is a row block whose row i is row
+    i + diag_offset of the whole matrix, as in the distributed GP's row
+    blocks of K(X, X); the global diagonal j == i + diag_offset takes the
+    exact self-value outputscale (+ noise), whatever round-off the two
+    copies of the point carry.
+
     CUDA tensors go through the hand-written kernel (or raise); CPU tensors
     through ``kernel_matrix_reference``. Pass the same tensor as ``z1`` and
     ``z2`` for K(Z, Z)."""
     _check(z1, z2, kernel_name)
+    if diag_offset is not None and not 0 <= diag_offset < 2**31:
+        raise ValueError(f"diag_offset must be an int in [0, 2**31), got {diag_offset}")
     outputscale, noise = _param(outputscale, z1), _param(noise, z1)
-    return KernelMatrix.apply(z1, z2, outputscale, noise, kernel_name, add_noise)
+    return KernelMatrix.apply(z1, z2, outputscale, noise, kernel_name, add_noise, diag_offset)
 
 
 def ts_cov_reference(

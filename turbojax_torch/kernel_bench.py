@@ -110,6 +110,14 @@ TS_F64_SHAPES = [
     ("f64_path_1x1000_n1000_d10", 1, 1000, 1000, 10),
     ("f64_path_1x1000_n2000_d60", 1, 1000, 2000, 60),
 ]
+# (label, rows, n, d, diag_offset): the distributed GP's row blocks of K(X, X)
+# at N = 16384, d = 10, the exact self-value on the global diagonal: a mesh
+# of one device (the whole matrix in the symmetric schedule, chip_smoke.py
+# phase 10) and each rank's block on a mesh of two (here rank 1's)
+KM_OFFSET_SHAPES = [
+    ("dist_kxx_16384x16384_d10", 16384, 16384, 10, 0),
+    ("dist_rowblock_8192x16384_d10_off8192", 8192, 16384, 10, 8192),
+]
 KM_HEADLINE, TS_HEADLINE = KM_SHAPES[0][0], TS_SHAPES[0][0]
 KM_LARGE_HEADLINE, TS_LARGE_HEADLINE = "large_kxx_16384x16384_d10", "large_1x1000_n16384_d10"
 KM_F64_HEADLINE, TS_F64_HEADLINE = KM_F64_SHAPES[0][0], TS_F64_SHAPES[0][0]
@@ -223,7 +231,8 @@ def _line(kind, label, dims, bound, times, dev, base_dev, smi, lib_dev=None) -> 
 def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict[str, Dict[str, object]]:
     """Times both kernels at KM_SHAPES and TS_SHAPES in float32 and at
     KM_F64_SHAPES and TS_F64_SHAPES in float64 (with ``baseline``, another
-    cuda_kernels module, in turns); returns {label: line} and passes each
+    cuda_kernels module, in turns), and the kernel matrix at
+    KM_OFFSET_SHAPES (with no baseline: ``diag_offset`` is this PR's); returns {label: line} and passes each
     line to ``emit`` as it is measured."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     lines = {}
@@ -241,6 +250,18 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
                              dev, base_dev, smi)
         emit(lines[label])
         del z1, z2
+    for label, rows, n, d, off in KM_OFFSET_SHAPES:
+        z, _, s, nz = _inputs_km(gen, 1, n, n, d, True)
+        zr = z if rows == n else z[off:off + rows]
+        fns = {"plain": lambda: CK.kernel_matrix_reference(zr, z, s, nz, "matern52", True, off),
+               "kernel": lambda: CK.kernel_matrix(zr, z, s, nz, "matern52", True, off)}
+        times = in_turns(fns, reps)
+        dims = {"batch": 1, "n": rows, "m": n, "d": d, "same": rows == n, "diag_offset": off, "kernel_fn": "matern52",
+                "dtype": "float32"}
+        lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(1, rows, n, d, rows == n), times,
+                             device_ms(fns["kernel"], reps), None, smi)
+        emit(lines[label])
+        del z, zr
     ts = [(s, torch.float32) for s in TS_SHAPES] + [(s, torch.float64) for s in TS_F64_SHAPES]
     for (label, batch, m, n, d), dtype in ts:
         zs, v, s, jit = _inputs_ts(gen, batch, m, n, d, dtype)

@@ -175,23 +175,24 @@ def _fit_groups(ns: Sequence[int], in_search: Sequence[bool], cap: int, cap_b: O
     return [([i for i in members if in_search[i]], c) for members, c in groups]
 
 
-def turbom_propose_batch(
+def region_values(
     carries: TurboCarry, cfg: TurboConfig, config: GPConfig,
     generator: Optional[torch.Generator] = None, cap: Optional[int] = None,
     cap_b: Optional[int] = None, draws: Optional[Sequence[Draws]] = None,
-) -> Tuple[TurboCarry, Tensor, List[int], List[int]]:
-    """First half of a TuRBO-m iteration: the per-region fits (batched per
+) -> Tuple[TurboCarry, Tensor, Tensor]:
+    """The per-region half of a TuRBO-m iteration: the fits (batched per
     capacity group, on ``[:cap]`` views, the non-largest regions on
     ``[:cap_b]`` when given), candidates and Thompson values
-    (``cfg.ts_sampler``), and the global allocation. With ``fit_every > 1``
-    each capacity group splits in two: the regions at their refit cadence
-    (``trust_region.refits_now``) go through one batched ``fit_gp``, the
-    others through one batched ``make_gp_state`` on their carried hypers,
-    so the launches per step do not grow with m. The caller guarantees
-    every fitted region's count fits its view. ``draws`` (one ``Draws`` per
-    region) replaces the generator's. Returns (carries with the refitted
-    hypers, x_sel (q, d) in the unit cube, tr_idx, cand_idx): the
-    allocation is read back to the host."""
+    (``cfg.ts_sampler``). With ``fit_every > 1`` each capacity group splits
+    in two: the regions at their refit cadence (``trust_region.refits_now``)
+    go through one batched ``fit_gp``, the others through one batched
+    ``make_gp_state`` on their carried hypers, so the launches per step do
+    not grow with m. The caller guarantees every fitted region's count fits
+    its view. ``draws`` (one ``Draws`` per region) replaces the generator's.
+    Returns (carries with the refitted hypers, candidates (m, n_cand, d),
+    values (m, q, n_cand)): what ``global_allocate`` takes, here or, with
+    the regions sharded across a mesh, after an all-gather
+    (``parallel.sharded_turbom_step``)."""
     m = len(carries.n)
     n_loc, dim = carries.x_buf.shape[1:]
     q = cfg.batch_size
@@ -242,11 +243,23 @@ def turbom_propose_batch(
                                            cfg.rff_features, generator, dr.sampler)
         cands_all.append(cands.to(dtype))
         values_all.append(values)
-    cands = torch.stack(cands_all)
-    tr_idx, cand_idx = global_allocate(torch.stack(values_all), cfg.alloc_cap)
+    return carries._replace(raw=raw), torch.stack(cands_all), torch.stack(values_all)
+
+
+def turbom_propose_batch(
+    carries: TurboCarry, cfg: TurboConfig, config: GPConfig,
+    generator: Optional[torch.Generator] = None, cap: Optional[int] = None,
+    cap_b: Optional[int] = None, draws: Optional[Sequence[Draws]] = None,
+) -> Tuple[TurboCarry, Tensor, List[int], List[int]]:
+    """First half of a TuRBO-m iteration: ``region_values`` (the arguments
+    are its), then the global allocation. Returns (carries with the
+    refitted hypers, x_sel (q, d) in the unit cube, tr_idx, cand_idx): the
+    allocation is read back to the host."""
+    carries, cands, values = region_values(carries, cfg, config, generator, cap, cap_b, draws)
+    tr_idx, cand_idx = global_allocate(values, cfg.alloc_cap)
     x_sel = cands[tr_idx, cand_idx]
     tr_host, cand_host = torch.stack([tr_idx, cand_idx]).tolist()
-    return carries._replace(raw=raw), x_sel, tr_host, cand_host
+    return carries, x_sel, tr_host, cand_host
 
 
 def turbom_absorb_batch(
