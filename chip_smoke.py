@@ -26,7 +26,11 @@ non-zero and the final line is not printed:
    0.5**7 at ℓ = 0.01; and plain BO's shapes: K(Z, Z) at 60 points, d = 2
    (config 1) and four lanes of 112 points, d = 6 (config 2's L-BFGS
    restarts), their posterior cross matrices against 2000 candidates and the
-   one-row cross of an append. Each case draws its inputs from its own
+   one-row cross of an append; the float64 designs' edges (K(Z, Z) at 15,
+   17 and 33 points, d = 2, 100 and 70, a batch of three at 97 points, a
+   31 x 65 cross; the TS covariance at m = 15, n = 3; m = 17, n = 1001,
+   d = 70; three chunks of m = 999, n = 1001; two of m = 97, n = 17,
+   d = 100). Each case draws its inputs from its own
    generator, seeded from its label. The float32 outputs are gated against
    the plain version in float64 on the same inputs (the exact result): the
    kernel matrix at rtol 2e-5 / atol 2e-6, the TS covariance at
@@ -44,9 +48,9 @@ non-zero and the final line is not printed:
    must equal their mirrored columns. The distributed GP's row blocks with
    the exact self-value on their global diagonal (``diag_offset``): a
    2048-row block of 8192 points at offset 4096, a ragged 130-row block at
-   d = 60 and the whole 4096-point matrix at offset 0 (one tensor: the
-   symmetric schedule), gated the same way, the diagonal exact in both
-   dtypes. Then the kernel-matrix gradients
+   d = 60, the whole 4096-point matrix at offset 0 (one tensor: the
+   symmetric schedule) and a 100-row block at offset 3, gated the same way,
+   the diagonal exact in both dtypes. Then the kernel-matrix gradients
    (kernel forward, plain
    backward) against plain autograd at (16, 2048, 60) and (4, 112, 6), and a small GP
    problem on the card (float64, through the kernels) against the same
@@ -91,7 +95,10 @@ non-zero and the final line is not printed:
    ``build/chip_smoke/``): the incumbent trace must equal an uninterrupted
    run's bit for bit; and an ask/tell ``Optimizer`` at config 4's sizes
    saved after five tells and restored into a fresh one must ask what the
-   saved one asks next;
+   saved one asks next; (f) config 5 with ``ts_dtype="float64"`` at full
+   width (m = 5, d = 60, 5000 candidates per region, TS chunks of 1000),
+   400 evaluations as (d): both kernels' float64 designs must be launched
+   (``LAUNCHES_F64``, ``TS_COV_LAUNCHES_F64``);
 9. large-N plain BO at d = 10 and full width (5000 candidates, q = 10),
    ``turbojax_torch.bench_large_n`` and ``bo_distributed``: (a) at N = 4096,
    8192 and 16384, ``make_gp_state``, the posterior in chunks of 1000 and
@@ -288,6 +295,18 @@ def _cases(torch):
     label, unit = case("large_post_16384x1000_d10")
     z1, z2 = centered(unit(16384, 10) / ell, unit(1000, 10) / ell)
     out.append((label, z1, z2, one, nz))
+    # the float64 design's edges: K(Z, Z) around its 32-tiles, d past the 64
+    # features staged at once, a batch of three, a ragged cross
+    for m, d in ((15, 2), (17, 100), (33, 70)):
+        label, unit = case(f"kzz_{m}_d{d}")
+        zc = centered(unit(m, d) / math.sqrt(d / 24))
+        out.append((label, zc, zc, one, nz))
+    label, unit = case("batch3_kzz_97_d5")
+    zc = centered(unit(3, 97, 5) / math.sqrt(5 / 24))
+    out.append((label, zc, zc, rows([1.3, 0.7, 2.0]), rows([1e-2, 1e-3, 1e-4])))
+    label, unit = case("ragged_31x65_d10")
+    z1, z2 = centered(unit(31, 10) / ell, unit(65, 10) / ell)
+    out.append((label, z1, z2, one, nz))
     return out
 
 
@@ -438,11 +457,13 @@ def _large_kernel_matrix_parity(torch, CK, worst):
 
 # (label, rows, n, d, diag_offset): the distributed GP's row blocks of K(Z, Z)
 # with the exact self-value on the global diagonal (``diag_offset``): a rank's
-# block of a mesh of four at N = 8192, a ragged block at d = 60, and the whole
-# matrix of a mesh of one device (one tensor: the symmetric schedule)
+# block of a mesh of four at N = 8192, a ragged block at d = 60, the whole
+# matrix of a mesh of one device (one tensor: the symmetric schedule), and a
+# block whose diagonal crosses the tiles off their corners
 OFFSET_CASES = (("dist_rowblock_2048x8192_d10_off4096", 2048, 8192, 10, 4096),
                 ("dist_rowblock_130x390_d60_off130", 130, 390, 60, 130),
-                ("dist_whole_4096x4096_d10", 4096, 4096, 10, 0))
+                ("dist_whole_4096x4096_d10", 4096, 4096, 10, 0),
+                ("dist_rowblock_100x333_d7_off3", 100, 333, 7, 3))
 
 
 def _offset_parity(torch, CK, worst):
@@ -554,6 +575,12 @@ def _ts_cases(torch):
         batch("clustered_1000_n1000_d60", [(1000, 1000, 60, 0.01)], [1.3], cluster=0.5**7),
         # large-N plain BO: the exact Thompson chunk against 16384 training rows
         batch("large_1000_n16384_d10", [(1000, 16384, 10, ell10)], [1.3]),
+        # the float64 design's edges: m and n off its 96-tiles, 32-sub-tiles and
+        # 16-row steps, d past the 64 features staged at once, batches
+        batch("m15_n3_d60", [(15, 3, 60, ell60)], [1.3]),
+        batch("m17_n1001_d70", [(17, 1001, 70, math.sqrt(70 / 24))], [1.3]),
+        batch("b3_m999_n1001_d10", [(999, 1001, 10, ell10)] * 3, [1.3, 0.7, 2.0]),
+        batch("b2_m97_n17_d100", [(97, 17, 100, math.sqrt(100 / 24))] * 2, [1.3, 0.3]),
     ]
 
 
@@ -1265,6 +1292,8 @@ def main() -> int:
     ):
         paths[label] = phase_config(torch, CK, smi, 8, name, **options)
     paths["turbo1_ackley10_resumed"] = phase8_kill_and_resume(torch, CK, smi)
+    paths["turbom5_rover60_f64"] = phase_config(torch, CK, smi, 8, "turbom5_rover60", ts_dtype="float64",
+                                                max_evals=400)
     paths.update(phase9_large_n(torch, CK, smi))
     paths.update(phase10_mesh(torch, CK, smi))
     entries = []

@@ -3,8 +3,9 @@
 The kernels themselves run only on a GPU (``tests/test_torch_kernels.py``
 and ``tests/test_torch_ts_cov.py`` hold them to their plain versions there).
 Here: the launch plans (``cuda_kernels.kernel_matrix_plan``,
-``ts_cov_plan``) cover each output tile once and partition ts_cov's
-training rows, within CUDA's grid limits; the per-batch scalars and the
+``ts_cov_plan``, in float32 as they were and in float64 their own) cover
+each output tile once and partition ts_cov's training rows, within CUDA's
+grid limits; the per-batch scalars and the
 symmetric flag reach the launch as the plain version reads them; and
 ``optimize`` runs on the card unless asked for the CPU.
 """
@@ -95,12 +96,89 @@ def test_ts_cov_plan_at_the_path_chunk():
     assert (plan.blocks, plan.splits, plan.chunk, plan.lead) == (36, 7, 326, 280)
 
 
+# the float32 plans as they were before the float64 designs got their own:
+# (batch, m, n, d) -> (blocks, splits, chunk, lead, workspace)
+F32_TS_PLANS = [((1, 1000, 1000, 10), (36, 7, 169, 180, 4718592)), ((5, 1000, 2048, 60), (36, 7, 333, 280, 23592960)),
+                ((20, 1000, 512, 60), (36, 3, 264, 280, 47185920)), ((1, 999, 1750, 60), (36, 7, 290, 280, 4718592)),
+                ((1, 1000, 16384, 10), (36, 44, 377, 180, 26542080)), ((1, 63, 300, 60), (1, 9, 65, 280, 163840))]
+# (batch, n, m, d, symmetric) -> (tile, row_tiles, col_tiles, blocks)
+F32_KM_PLANS = [((16, 2000, 2000, 60, True), (64, 32, 32, 528)), ((1, 2000, 1000, 60, False), (64, 32, 16, 512)),
+                ((1, 1000, 1000, 10, True), (64, 16, 16, 136))]
+
+
+@pytest.mark.parametrize("shape, want", F32_TS_PLANS)
+def test_float32_ts_cov_plan_is_unchanged(shape, want):
+    for plan in (CK.ts_cov_plan(*shape), CK.ts_cov_plan(*shape, dtype=torch.float32)):
+        assert (plan.blocks, plan.splits, plan.chunk, plan.lead, plan.workspace) == want
+
+
+@pytest.mark.parametrize("shape, want", F32_KM_PLANS)
+def test_float32_kernel_matrix_plan_is_unchanged(shape, want):
+    plan = CK.kernel_matrix_plan(*shape)
+    assert (plan.tile, plan.row_tiles, plan.col_tiles, plan.blocks) == want
+    assert CK.kernel_matrix_plan(*shape, dtype=torch.float32) == plan
+
+
+# (batch, m, n, d): the f64 lane's chunks (config 4's, config 5's five
+# regions at the 2048 rung), m and n off the 96-tile, the 16-row step and the
+# 32-sub-tile, n = 0, d past the 64 features staged at once
+F64_TS_SHAPES = [(1, 1000, 1000, 10), (1, 1000, 2000, 60), (5, 1000, 2048, 60), (20, 1000, 512, 60),
+                 (1, 1, 1, 10), (1, 15, 3, 60), (1, 17, 1001, 70), (3, 999, 1001, 10), (2, 97, 17, 100),
+                 (1, 129, 0, 60), (1, 1000, 16384, 10)]
+
+
+@pytest.mark.parametrize("batch, m, n, d", F64_TS_SHAPES)
+def test_float64_ts_cov_plan_covers_tiles_and_partitions_n(batch, m, n, d):
+    """The float64 design: one block per upper 96-tile and split of the
+    16-row steps, splits in pairs (a cluster each) whose rows partition n in
+    order; a workspace slot per tile and pair; the grid within CUDA's
+    limits and, for a chunk, one wave of two blocks on each of 132 SMs."""
+    plan = CK.ts_cov_plan(batch, m, n, d, dtype=torch.float64)
+    assert plan.symmetric and plan.tile == 96 and plan.row_tiles == math.ceil(m / 96)
+    _check_upper_tiles(plan)
+    assert plan.splits % 2 == 0 and plan.splits in CK._TS64_SPLITS and plan.steps == math.ceil(n / 16)
+    rows = [r for s in range(plan.splits) for r in plan.split_rows(s, n)]
+    assert rows == list(range(n))
+    assert plan.workspace == batch * plan.blocks * plan.splits // 2 * 96**2
+    assert batch * plan.blocks * plan.splits < 2**31
+    if batch * plan.blocks <= 66:
+        assert batch * plan.blocks * plan.splits <= 2 * 132
+
+
+def test_float64_ts_cov_plan_at_the_path_chunk():
+    """A 1000-candidate chunk: 66 upper 96-tiles, four splits, 264 blocks:
+    two on each of 132 SMs."""
+    for n in (1000, 2000):
+        plan = CK.ts_cov_plan(1, 1000, n, 60, dtype=torch.float64)
+        assert (plan.blocks, plan.splits, plan.blocks * plan.splits) == (66, 4, 264)
+
+
+@pytest.mark.parametrize("batch, n, d", SYMMETRIC + [(1, 1000, 10), (1, 2000, 60), (3, 33, 5), (1, 32, 10)])
+def test_float64_kernel_matrix_plan_covers_each_upper_tile_once(batch, n, d):
+    plan = CK.kernel_matrix_plan(batch, n, n, d, True, torch.float64)
+    assert plan.tile == 32 and plan.row_tiles == math.ceil(n / 32)
+    _check_upper_tiles(plan)
+
+
+def test_float64_kernel_matrix_fills_whole_waves():
+    """A 1000-point K(Z, Z) in 32-tiles is 528 upper tiles, four to each of
+    132 SMs (64-tiles gave 136: a second wave of 4 blocks); 2000 points,
+    2016."""
+    assert CK.kernel_matrix_plan(1, 1000, 1000, 10, True, torch.float64).blocks == 4 * 132
+    assert CK.kernel_matrix_plan(1, 2000, 2000, 60, True, torch.float64).blocks == 2016
+    cross = CK.kernel_matrix_plan(1, 2000, 1000, 60, False, torch.float64)
+    assert cross.tiles() == [(i, j) for i in range(63) for j in range(32)]
+
+
 @pytest.mark.parametrize("call", [
     lambda: CK.kernel_matrix_plan(65536, 10, 10, 3, True),
     lambda: CK.kernel_matrix_plan(1, 2**31 - 1, 2**31 - 1, 3, True),
     lambda: CK.kernel_matrix_plan(1, 10, 11, 3, True),
     lambda: CK.ts_cov_plan(65536, 10, 10, 3),
     lambda: CK.ts_cov_plan(1, 2**31 - 1, 10, 3),
+    lambda: CK.ts_cov_plan(65536, 10, 10, 3, dtype=torch.float64),
+    lambda: CK.ts_cov_plan(1, 2**24, 10, 3, dtype=torch.float64),
+    lambda: CK.kernel_matrix_plan(65536, 10, 10, 3, True, torch.float64),
 ])
 def test_plans_respect_the_grid_limits(call):
     with pytest.raises(ValueError):
@@ -173,7 +251,9 @@ def test_same_input_is_kept_through_the_2d_to_3d_step(dtype, rng, monkeypatch):
     assert torch.all(got.diagonal() == k0 + torch.tensor(0.25, dtype=dtype))  # d² = 0 exactly
     a, b, _, _, plan = CK._kernel_matrix_args(z, z, torch.tensor(1.3, dtype=dtype), torch.tensor(0.25, dtype=dtype),
                                               True)
-    assert a.shape == (1, 70, 6) and a.data_ptr() == b.data_ptr() and plan.symmetric and plan.blocks == 3
+    # 70 points: two 64-tiles in float32 (3 upper tiles), three 32-tiles in float64 (6)
+    assert a.shape == (1, 70, 6) and a.data_ptr() == b.data_ptr() and plan.symmetric
+    assert plan.blocks == (3 if dtype == torch.float32 else 6)
 
 
 def test_optimize_defaults_to_the_card(monkeypatch):

@@ -1,6 +1,8 @@
-// Register-tiled mainloop shared by the kernel-matrix and TS-covariance
-// kernels (sm_90a), fp32 FMAs in the float instantiation and fp64 FMAs in
-// the double one; no TF32, no tensor cores.
+// Register-tiled mainloop of the float kernel-matrix and TS-covariance
+// kernels (sm_90a): fp32 FMAs on the CUDA cores, no TF32, no tensor cores.
+// The double kernels have their own designs: the kernel tile of
+// tile_f64.cuh (fp64 CUDA cores, 2 x 2 entries a thread) and the f64 TS
+// covariance's v^T v on the FP64 tensor cores (ts_cov.cu).
 //
 // A block owns one TILE x TILE output tile; its SIDE x SIDE threads (SIDE =
 // TILE / TM) own TM x TM outputs each: thread (ty, tx) has the rows
@@ -46,15 +48,6 @@ __device__ __forceinline__ void lds4(const float* p, float* v) {
   v[1] = a.y;
   v[2] = a.z;
   v[3] = a.w;
-}
-
-__device__ __forceinline__ void lds4(const double* p, double* v) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = b.x;
-  v[3] = b.y;
 }
 
 // p[q] = w[q] for q < min(4, valid): one 16-byte store when vec (float, p

@@ -3,8 +3,12 @@
 
 Two kernels, each in its own source under ``csrc/`` and its own shared
 library, built for sm_90a with ``nvcc`` on first use (all sources at once,
-one ``nvcc`` each, started together) and bound with ``ctypes``. Both share
-the register-tiled fp32 mainloop of ``csrc/tile_mainloop.cuh``:
+one ``nvcc`` each, started together) and bound with ``ctypes``. Each has
+a float32 and a float64 design: in float32 both run on the register-tiled
+fp32 mainloop of ``csrc/tile_mainloop.cuh`` (CUDA cores, no TF32, no
+tensor cores); in float64 the kernel function is ``csrc/tile_f64.cuh``'s
+tile on the fp64 CUDA cores and ``ts_cov``'s vᵀv runs on the FP64 tensor
+cores (DMMA):
 
 * ``kernel_matrix(z1, z2, outputscale, noise, kernel_name, add_noise,
   diag_offset)``, ``csrc/kernel_matrix.cu``: every kernel-matrix build of
@@ -32,7 +36,7 @@ gradient (nothing on the path differentiates a Thompson draw).
 ``LAUNCHES`` and ``TS_COV_LAUNCHES`` count each kernel's launches, so that
 a run can show that its main path went through the kernels;
 ``LAUNCHES_F64`` and ``TS_COV_LAUNCHES_F64`` count those of the float64
-instantiations among them (the f64 Thompson lane's).
+designs among them (the f64 Thompson lane's).
 """
 
 from __future__ import annotations
@@ -75,11 +79,16 @@ _NVCC_FLAGS = (
 )
 _MAX_GRID_X = 2**31 - 1  # CUDA's limit on gridDim.x: the tiles of one matrix
 _MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (ts_cov's splits) and gridDim.z (batch)
-_TILE = 64  # output tile of csrc/kernel_matrix.cu
-_TS_TILE = 128  # tile of csrc/ts_cov.cu's first pass
-_TS_RESIDENT = 2  # first-pass blocks an SM holds at once
+_TILE = 64  # output tile of csrc/kernel_matrix.cu, float
+_TILE_F64 = 32  # and double
+_TS_TILE = 128  # tile of csrc/ts_cov.cu's first pass, float
+_TS_RESIDENT = 2  # first-pass blocks an SM holds at once, float
 _TS_LEAD = 160  # rows' worth of work in the kernel term's epilogue, besides its 2d
 _TS_MIN_CHUNK, _TS_MAX_CHUNK = 64, 384  # rows of one split: no shorter when filling the card, never longer
+# double: the DMMA pass's tiles, the training rows of one step, its blocks
+# per SM (as many as fit), the splits it may cut a tile's rows into (even:
+# pairs meet in a cluster), the finishing pass's sub-tiles
+_TS64_TILE, _TS64_ROWS, _TS64_RESIDENT, _TS64_SPLITS, _TS64_SUB = 96, 16, 2, (2, 4, 6, 8), 32
 _H100_SMS = 132
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -130,9 +139,11 @@ def _bind(lib: ctypes.CDLL, name: str) -> None:
         # diag_offset, exact, stream
         launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, *[i32] * 10, ptr]
     else:
-        # zs, v, scale, stride, jitter, stride, out, workspace, batch, m, n, d, splits, chunk, lead, kernel, double,
-        # stream
-        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, *[i32] * 9, ptr]
+        # zs, v, scale, stride, jitter, stride, out, workspace, batch, m, n, d, splits, chunk, lead, kernel, stream
+        launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, *[i32] * 8, ptr]
+        # zs, v, scale, stride, jitter, stride, out, workspace, batch, m, n, d, splits, kernel, stream
+        lib.ts_cov_f64_launch.argtypes = [ptr, ptr, ptr, i32, ptr, i32, ptr, ptr, *[i32] * 6, ptr]
+        lib.ts_cov_f64_launch.restype = i32
     launch.restype = i32
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i32]
@@ -204,10 +215,11 @@ def _cdiv(a: int, b: int) -> int:
 class LaunchPlan:
     """What one launch covers, per batch entry: the ``tile`` × ``tile``
     output tiles of a matrix of ``row_tiles`` × ``col_tiles`` tiles, only
-    the upper ones (ti ≤ tj) when ``symmetric``; and, for ts_cov, ``splits``
-    slices of the training axis, ``chunk`` rows each shifted back by
-    ``lead`` (see ``ts_cov_plan``), and a workspace of ``workspace``
-    elements."""
+    the upper ones (ti ≤ tj) when ``symmetric``; and, for ts_cov, a
+    workspace of ``workspace`` elements and ``splits`` slices of the
+    training axis: in float ``chunk`` rows each shifted back by ``lead``, in
+    double ``steps`` steps of 16 rows shared out evenly (see
+    ``ts_cov_plan``)."""
 
     tile: int
     row_tiles: int
@@ -217,6 +229,7 @@ class LaunchPlan:
     chunk: int = 0
     lead: int = 0
     workspace: int = 0
+    steps: int = 0
 
     @property
     def blocks(self) -> int:
@@ -232,6 +245,11 @@ class LaunchPlan:
             return [(ti, tj) for tj in range(self.row_tiles) for ti in range(tj + 1)]
         return [(ti, tj) for ti in range(self.row_tiles) for tj in range(self.col_tiles)]
 
+    def split_rows(self, split: int, n: int) -> range:
+        """The training rows split ``split`` sums (float64 ts_cov)."""
+        lo, hi = split * self.steps // self.splits, (split + 1) * self.steps // self.splits
+        return range(min(n, lo * _TS64_ROWS), min(n, hi * _TS64_ROWS))
+
 
 def _check_grid(plan: LaunchPlan, batch: int, *sizes: int) -> None:
     if plan.blocks > _MAX_GRID_X or batch > _MAX_GRID_YZ or plan.splits >= _MAX_GRID_YZ or max(sizes) >= 2**31:
@@ -239,20 +257,25 @@ def _check_grid(plan: LaunchPlan, batch: int, *sizes: int) -> None:
 
 
 @functools.lru_cache(maxsize=1024)
-def kernel_matrix_plan(batch: int, n: int, m: int, d: int, symmetric: bool) -> LaunchPlan:
+def kernel_matrix_plan(batch: int, n: int, m: int, d: int, symmetric: bool,
+                       dtype: torch.dtype = torch.float32) -> LaunchPlan:
     """The launch of ``csrc/kernel_matrix.cu`` for (B, n, d) × (B, m, d): its
-    64-tiles, only the upper ones for K(Z, Z)."""
+    tiles (64 in float32, 32 in float64), only the upper ones for K(Z, Z)."""
     if symmetric and n != m:
         raise ValueError(f"a symmetric launch needs n == m, got {n} and {m}")
-    plan = LaunchPlan(_TILE, _cdiv(n, _TILE), _cdiv(m, _TILE), symmetric)
+    tile = _TILE_F64 if dtype == torch.float64 else _TILE
+    plan = LaunchPlan(tile, _cdiv(n, tile), _cdiv(m, tile), symmetric)
     _check_grid(plan, batch, n, m, d)
     return plan
 
 
 @functools.lru_cache(maxsize=1024)
-def ts_cov_plan(batch: int, m: int, n: int, d: int = 0, sms: int = _H100_SMS) -> LaunchPlan:
-    """The launch of ``csrc/ts_cov.cu`` for m candidates and n training rows.
-    Its first pass runs one block per upper 128-tile of the (m, m) output
+def ts_cov_plan(batch: int, m: int, n: int, d: int = 0, sms: int = _H100_SMS,
+                dtype: torch.dtype = torch.float32) -> LaunchPlan:
+    """The launch of ``csrc/ts_cov.cu`` for m candidates and n training rows
+    (float64: ``_ts_cov_plan_f64``).
+
+    float32: its first pass runs one block per upper 128-tile of the (m, m) output
     and split of the n axis. Split s sums vᵀv over the rows [s·chunk − lead,
     (s+1)·chunk − lead) ∩ [0, n); the first split also computes the kernel
     term, which costs about ``lead`` = 2d + ``_TS_LEAD`` rows, so the blocks
@@ -262,6 +285,8 @@ def ts_cov_plan(batch: int, m: int, n: int, d: int = 0, sms: int = _H100_SMS) ->
     keeps the f32 error low). Each split and the kernel term take a
     workspace slot per tile: (splits + 1) × batch × tiles × 128² elements.
     The second pass finishes each tile from its slots."""
+    if dtype == torch.float64:
+        return _ts_cov_plan_f64(batch, m, n, d, sms)
     side = _cdiv(m, _TS_TILE)
     plan = LaunchPlan(_TS_TILE, side, side, True)
     lead = 2 * d + _TS_LEAD
@@ -273,6 +298,30 @@ def ts_cov_plan(batch: int, m: int, n: int, d: int = 0, sms: int = _H100_SMS) ->
     plan = dataclasses.replace(plan, splits=splits, chunk=chunk, lead=lead,
                                workspace=(splits + 1) * batch * plan.blocks * _TS_TILE**2)
     _check_grid(plan, batch, n, m, d, 4 * plan.blocks)  # the second pass: a block per quarter tile
+    return plan
+
+
+def _ts_cov_plan_f64(batch: int, m: int, n: int, d: int, sms: int) -> LaunchPlan:
+    """float64: the DMMA pass runs one block per upper 96-tile and split of
+    the tile's ``steps`` = ⌈n/16⌉ steps of 16 training rows, split s taking
+    the steps [s·steps/splits, (s+1)·steps/splits) (``split_rows``). The
+    splits come in pairs whose blocks form a cluster and add their two sums
+    in shared memory: a workspace slot per tile and pair, batch × tiles ×
+    splits/2 × 96² elements, which the second pass adds in pair order. The
+    count is the even number that finishes soonest with ``_TS64_RESIDENT``
+    blocks on each SM, ⌈blocks / slots⌉ waves of ⌈steps/splits⌉ steps each,
+    the fewer on a tie: a 1000-candidate chunk is 66 tiles, four splits,
+    264 blocks, one wave of two per SM."""
+    side = _cdiv(m, _TS64_TILE)
+    plan = LaunchPlan(_TS64_TILE, side, side, True)
+    steps = _cdiv(n, _TS64_ROWS)
+    cells = batch * plan.blocks
+    slots = _TS64_RESIDENT * sms
+    splits = min(_TS64_SPLITS, key=lambda s: (_cdiv(cells * s, slots) * _cdiv(steps, s), s))
+    plan = dataclasses.replace(plan, splits=splits, steps=steps,
+                               workspace=cells * splits // 2 * _TS64_TILE**2)
+    sub = _cdiv(m, _TS64_SUB)
+    _check_grid(plan, batch, n, m, d, cells * splits, sub * (sub + 1) // 2)
     return plan
 
 
@@ -342,7 +391,7 @@ def _kernel_matrix_args(z1: Tensor, z2: Tensor, outputscale: Tensor, noise: Tens
     if z1.dim() == 2:
         z1, z2 = z1[None], z2[None]
     batch, n, d = z1.shape
-    plan = kernel_matrix_plan(batch, n, z2.shape[1], d, same)
+    plan = kernel_matrix_plan(batch, n, z2.shape[1], d, same, z1.dtype)
     return z1, z2, _per_batch(outputscale, batch, "outputscale"), _per_batch(noise, batch, "noise"), plan
 
 
@@ -473,7 +522,7 @@ def _ts_cov_args(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, sms
         zs, v = zs[None], v[None]
     zs, v = zs.contiguous(), v.contiguous()
     batch, m, d = zs.shape
-    plan = ts_cov_plan(batch, m, v.shape[1], d, sms)
+    plan = ts_cov_plan(batch, m, v.shape[1], d, sms, zs.dtype)
     return zs, v, _per_batch(outputscale, batch, "outputscale"), _per_batch(jitter, batch, "jitter"), plan
 
 
@@ -492,13 +541,14 @@ def _launch_ts_cov(zs: Tensor, v: Tensor, outputscale: Tensor, jitter: Tensor, k
     ws = torch.empty(plan.workspace, dtype=zs.dtype, device=zs.device)
     lib = _load("ts_cov")
     index = zs.device.index
+    args = (z.data_ptr(), vv.data_ptr(), scale.data_ptr(), scale_stride, jit.data_ptr(), jitter_stride,
+            out.data_ptr(), ws.data_ptr(), batch, m, vv.shape[1], d)
     with torch.cuda.device(index):
-        err = lib.ts_cov_launch(
-            z.data_ptr(), vv.data_ptr(), scale.data_ptr(), scale_stride, jit.data_ptr(), jitter_stride,
-            out.data_ptr(), ws.data_ptr(), batch, m, vv.shape[1], d,
-            plan.splits, plan.chunk, plan.lead, KERNEL_IDS[kernel_name], int(zs.dtype == torch.float64),
-            torch.cuda.current_stream(index).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(index).cuda_stream
+        if zs.dtype == torch.float64:
+            err = lib.ts_cov_f64_launch(*args, plan.splits, KERNEL_IDS[kernel_name], stream)
+        else:
+            err = lib.ts_cov_launch(*args, plan.splits, plan.chunk, plan.lead, KERNEL_IDS[kernel_name], stream)
     if err != 0:
         raise RuntimeError(f"ts_cov launch failed: {lib.ts_cov_error_string(err).decode()} ({err})")
     TS_COV_LAUNCHES += 1

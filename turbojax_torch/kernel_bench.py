@@ -3,6 +3,7 @@
     python3 -m turbojax_torch.kernel_bench
     python3 -m turbojax_torch.kernel_bench --baseline DIR
     python3 -m turbojax_torch.kernel_bench --chol
+    python3 -m turbojax_torch.kernel_bench --baseline DIR --bitwise
 
 For each shape (float32, and the f64 Thompson lane's shapes in float64) one
 JSON line: the kernel's time and the plain version's by
@@ -24,7 +25,9 @@ final size with its loss evaluations.
 ``--baseline DIR`` also times, in turns with this tree's kernels, the
 kernels of another checkout's ``turbojax_torch/cuda_kernels.py`` (for
 example the parent commit unpacked from ``git archive`` into a git-ignored
-directory), built from that checkout's ``csrc/`` into its own ``build/``.
+directory), built from that checkout's ``csrc/`` into its own ``build/``;
+with ``--bitwise`` it only compares the float32 outputs of both at every
+float32 shape, bit for bit.
 Every line carries the card's ``nvidia-smi`` name and power limit. Needs a
 CUDA GPU.
 """
@@ -271,7 +274,7 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
         times = in_turns(fns, reps)
         dev = device_ms(fns["kernel"], reps)
         base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
-        plan = CK.ts_cov_plan(batch, m, n, d)
+        plan = CK.ts_cov_plan(batch, m, n, d, dtype=dtype)
         dims = {"batch": batch, "m": m, "n": n, "d": d, "splits": plan.splits, "chunk": plan.chunk,
                 "dtype": str(dtype)[6:]}
         lines[label] = _line("ts_cov", label, dims, ts_cov_bound(batch, m, n, d, dtype), times, dev, base_dev, smi,
@@ -413,12 +416,43 @@ def lbfgs_fit(smi: str) -> Dict[str, object]:
             "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / (1e3 * walls[1]), "card": smi}
 
 
+def bitwise_against(baseline, smi: str, emit=print) -> bool:
+    """This tree's float32 kernels against ``baseline``'s (another checkout's
+    cuda_kernels, e.g. the parent commit's) on the same inputs, at every
+    float32 shape above and for the four kernel functions: one line per
+    shape, whether every output is equal bit for bit. Returns whether all
+    were."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    all_equal = True
+
+    def check(kind, label, run):
+        nonlocal all_equal
+        equal = all(torch.equal(run(CK, name), run(baseline, name)) for name in CK.KERNEL_IDS)
+        all_equal &= equal
+        emit({"bitwise": kind, "shape": label, "dtype": "float32", "equal": equal, "card": smi})
+
+    for label, batch, n, m, d, same, _ in KM_SHAPES:
+        z1, z2, s, nz = _inputs_km(gen, batch, n, m, d, same)
+        check("kernel_matrix", label, lambda mod, name: mod.kernel_matrix(z1, z2, s, nz, name, True))
+        del z1, z2
+    for label, rows, n, d, off in KM_OFFSET_SHAPES:
+        z, _, s, nz = _inputs_km(gen, 1, n, n, d, True)
+        zr = z if rows == n else z[off:off + rows]
+        check("kernel_matrix", label, lambda mod, name: mod.kernel_matrix(zr, z, s, nz, name, True, off))
+        del z, zr
+    for label, batch, m, n, d in TS_SHAPES:
+        zs, v, s, _ = _inputs_ts(gen, batch, m, n, d)
+        check("ts_cov", label, lambda mod, name: mod.ts_cov(zs, v, s, 1e-6, name))
+    return all_equal
+
+
 def load_baseline(tree: str):
     """Another checkout's ``turbojax_torch/cuda_kernels.py`` as a module of
     its own, its kernels built from that checkout's ``csrc/``."""
     path = os.path.join(os.path.abspath(tree), "turbojax_torch", "cuda_kernels.py")
     spec = importlib.util.spec_from_file_location("baseline_cuda_kernels", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up while the class is made
     spec.loader.exec_module(mod)
     mod.build()
     return mod
@@ -433,12 +467,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--baseline", default=None, help="a checkout whose kernels to time in turns with these")
     ap.add_argument("--chol", action="store_true", help="only the append-against-refactor table")
+    ap.add_argument("--bitwise", action="store_true",
+                    help="only the float32 outputs against --baseline's, bit for bit (exit 1 if any differs)")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_bench measures the card: torch.cuda.is_available() is False")
     smi = card()
     CK.build()
+    if args.bitwise:
+        if not args.baseline:
+            raise SystemExit("--bitwise needs --baseline DIR")
+        equal = bitwise_against(load_baseline(args.baseline), smi, emit=lambda line: print(json.dumps(line), flush=True))
+        return 0 if equal else 1
     if not args.chol:
         baseline = load_baseline(args.baseline) if args.baseline else None
         measure_kernels(smi, baseline, args.reps, emit=lambda line: print(json.dumps(line), flush=True))

@@ -49,7 +49,8 @@ from turbojax_torch import turbo_m as TM
 
 _SPANS = ("turbom.fit", "turbom.state", "gp.polish_backward", "turbom.thompson", "gp.ts_cov")
 _FAMILIES = {  # kernel-name fragment -> family
-    "ts_cov_partial": "ts_cov kernel", "ts_cov_finish": "ts_cov kernel", "kernel_matrix_tile": "kernel_matrix kernel",
+    "ts_cov_partial": "ts_cov kernel", "ts_cov_gram": "ts_cov kernel", "ts_cov_finish": "ts_cov kernel",
+    "kernel_matrix_tile": "kernel_matrix kernel",
     "potrf": "Cholesky", "cholesky": "Cholesky", "trsm": "triangular solve",
     "gemm": "GEMM", "gemv": "GEMM",
 }
