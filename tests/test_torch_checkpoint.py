@@ -191,7 +191,7 @@ def test_runlog_jsonl_profile_and_profiler_server(tmp_path, capsys):
     assert "[   0] best = 1.500000  L=0.8000" in out and "[   1] best = 1.250000" in out
     trace_dir = str(tmp_path / "traces")
     with RL.profile(trace_dir):
-        with RL.annotate("fit"):
+        with RL.span("fit"):
             torch.ones(8).sum()
     (name,) = os.listdir(trace_dir)
     assert '"fit"' in open(os.path.join(trace_dir, name)).read()

@@ -81,7 +81,7 @@ def test_profiler_toggle_writes_a_trace(tmp_path):
         assert RL.start_profiler_server(9917, trace_dir=trace_dir) == 9917
         assert RL.start_profiler_server(9917, trace_dir=str(tmp_path / "other")) == 9917  # a no-op
         os.kill(os.getpid(), signal.SIGUSR2)  # opens a window
-        with RL.annotate("fit"):
+        with RL.span("fit"):
             torch.ones(8, 8) @ torch.ones(8, 8)
         os.kill(os.getpid(), signal.SIGUSR2)  # closes it and writes the trace
         (name,) = os.listdir(trace_dir)

@@ -29,6 +29,7 @@ import torch
 from turbojax_torch import gp as G
 from turbojax_torch import linalg as L
 from turbojax_torch.config import GPConfig
+from turbojax_torch.runlog import span
 
 Tensor = torch.Tensor
 
@@ -87,13 +88,17 @@ def _robust_cov_chol(cov: Tensor, scale_abs: Tensor) -> Tensor:
     cmax = torch.clamp_min(cov.diagonal().max(), 1e-12)
 
     def attempt(rung: float):
-        return L.cholesky_nan(cov + (1e-6 * cmax + rung * scale_abs) * eye)
+        with span("linalg.cholesky_rung"):
+            return L.cholesky_nan(cov + (1e-6 * cmax + rung * scale_abs) * eye)
 
-    for rung in rungs[:-1]:
-        l_cov, info = attempt(rung)
-        if int(info) == 0:
-            return l_cov
-    return attempt(rungs[-1])[0]
+    with span("linalg.cholesky_ladder"):
+        for rung in rungs[:-1]:
+            l_cov, info = attempt(rung)
+            with span("sync.acq.ts_ladder"):
+                ok = int(info) == 0
+            if ok:
+                return l_cov
+        return attempt(rungs[-1])[0]
 
 
 def _residual(state: G.GPState) -> Tensor:
@@ -144,30 +149,31 @@ def thompson_samples(
     covariance itself. ``normals`` (q, n_cand) replaces the standard-normal
     draws (columns in candidate order); otherwise they come from
     ``generator``, in the sampling dtype."""
-    m = xs.shape[0]
-    out_dtype = xs.dtype
-    if dtype == "float64":
-        state = _state_f64(state, config)
-        xs = xs.to(torch.float64)
-    elif dtype is not None:
-        raise ValueError(f"unknown ts_dtype {dtype!r}; expected None or 'float64'")
-    scale_abs = (state.params["outputscale"] * state.y_std**2).to(xs.dtype)
-    if normals is None:
-        normals = torch.randn((q, m), generator=generator, dtype=xs.dtype, device=xs.device)
-    elif normals.shape != (q, m):
-        raise ValueError(f"normals must have shape {(q, m)}, got {tuple(normals.shape)}")
+    with span("acq.sample"):
+        m = xs.shape[0]
+        out_dtype = xs.dtype
+        if dtype == "float64":
+            state = _state_f64(state, config)
+            xs = xs.to(torch.float64)
+        elif dtype is not None:
+            raise ValueError(f"unknown ts_dtype {dtype!r}; expected None or 'float64'")
+        scale_abs = (state.params["outputscale"] * state.y_std**2).to(xs.dtype)
+        if normals is None:
+            normals = torch.randn((q, m), generator=generator, dtype=xs.dtype, device=xs.device)
+        elif normals.shape != (q, m):
+            raise ValueError(f"normals must have shape {(q, m)}, got {tuple(normals.shape)}")
 
-    def sample_chunk(chunk: Tensor, z: Tensor) -> Tensor:
-        mu, cov = G.posterior_cov(state, chunk, config)
-        l_cov = _robust_cov_chol(cov, scale_abs)
-        return (mu[None, :] + z.to(cov.dtype) @ l_cov.mT).to(out_dtype)
+        def sample_chunk(chunk: Tensor, z: Tensor) -> Tensor:
+            mu, cov = G.posterior_cov(state, chunk, config)
+            l_cov = _robust_cov_chol(cov, scale_abs)
+            return (mu[None, :] + z.to(cov.dtype) @ l_cov.mT).to(out_dtype)
 
-    if chunk_size is not None and m > chunk_size and m % chunk_size == 0:
-        return torch.cat(
-            [sample_chunk(c, z) for c, z in zip(xs.split(chunk_size), normals.split(chunk_size, dim=1))],
-            dim=1,
-        )
-    return sample_chunk(xs, normals)
+        if chunk_size is not None and m > chunk_size and m % chunk_size == 0:
+            return torch.cat(
+                [sample_chunk(c, z) for c, z in zip(xs.split(chunk_size), normals.split(chunk_size, dim=1))],
+                dim=1,
+            )
+        return sample_chunk(xs, normals)
 
 
 def select_q_batch(samples: Tensor, valid: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
@@ -294,19 +300,20 @@ def rff_paths(
     degenerate GP, so near noise-free data the paths under-disperse at any
     practical M (``tests/test_acq.py::test_rff_variance_starvation_characterization``).
     Draws (``draws.omega``, ``.b``, ``.weights``) are injectable."""
-    p = state.params
-    omega, b, ls = _features(state, xs, n_features, config, generator, draws)
-    phi_x = _rff_phi(state.x_buf, omega, b, ls, p["outputscale"])  # (N_max, M)
-    phi_x = torch.where(state.mask[:, None], phi_x, torch.zeros_like(phi_x))
-    noise = p["noise"]
-    eye = torch.eye(omega.shape[0], dtype=xs.dtype, device=xs.device)
-    chol_a = L.cholesky_nan(phi_x.mT @ phi_x / noise + eye)[0]
-    mean_w = L.cho_solve(chol_a, phi_x.mT @ _residual(state) / noise)
-    z = _normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
-    w = mean_w[None, :] + L.solve_upper_t(chol_a, z.mT).mT  # (n_paths, M): mean + L⁻ᵀ z
-    phi_c = _rff_phi(xs, omega, b, ls, p["outputscale"])  # (n_cand, M)
-    draws_std = p["mean"] + w @ phi_c.mT
-    return draws_std * state.y_std + state.y_mean
+    with span("acq.sample"):
+        p = state.params
+        omega, b, ls = _features(state, xs, n_features, config, generator, draws)
+        phi_x = _rff_phi(state.x_buf, omega, b, ls, p["outputscale"])  # (N_max, M)
+        phi_x = torch.where(state.mask[:, None], phi_x, torch.zeros_like(phi_x))
+        noise = p["noise"]
+        eye = torch.eye(omega.shape[0], dtype=xs.dtype, device=xs.device)
+        chol_a = L.cholesky_nan(phi_x.mT @ phi_x / noise + eye)[0]
+        mean_w = L.cho_solve(chol_a, phi_x.mT @ _residual(state) / noise)
+        z = _normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
+        w = mean_w[None, :] + L.solve_upper_t(chol_a, z.mT).mT  # (n_paths, M): mean + L⁻ᵀ z
+        phi_c = _rff_phi(xs, omega, b, ls, p["outputscale"])  # (n_cand, M)
+        draws_std = p["mean"] + w @ phi_c.mT
+        return draws_std * state.y_std + state.y_mean
 
 
 def pathwise_paths(
@@ -331,21 +338,22 @@ def pathwise_paths(
     tensors), its inactive columns zeroed, and the update solves against
     the cached factor. Draws (``draws.omega``, ``.b``, ``.weights`` as w,
     ``.eps``) are injectable."""
-    p = state.params
-    omega, b, ls = _features(state, xs, n_features, config, generator, draws)
-    n_max = state.mask.shape[0]
-    w = _normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
-    eps = torch.sqrt(p["noise"]) * _normals((n_paths, n_max), draws.eps, generator, xs)
-    prior_x = w @ _rff_phi(state.x_buf, omega, b, ls, p["outputscale"]).mT  # (n_paths, N_max)
-    prior_c = w @ _rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
-    # the exact update direction u = (K+σ²I)⁻¹(r − prior_x − ε), inactive
-    # rows zeroed: the identity-padded factor keeps them zero
-    rhs = torch.where(state.mask[None, :], _residual(state)[None, :] - prior_x - eps, torch.zeros_like(prior_x))
-    u = L.cho_solve(state.chol, rhs.mT)  # (N_max, n_paths)
-    k_cross = G._kernel_matrix(p, xs, state.x_buf, config, add_noise=False)  # (n_cand, N_max)
-    k_cross = torch.where(state.mask[None, :], k_cross, torch.zeros_like(k_cross))
-    draws_std = p["mean"] + prior_c + (k_cross @ u).mT
-    return draws_std * state.y_std + state.y_mean
+    with span("acq.sample"):
+        p = state.params
+        omega, b, ls = _features(state, xs, n_features, config, generator, draws)
+        n_max = state.mask.shape[0]
+        w = _normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
+        eps = torch.sqrt(p["noise"]) * _normals((n_paths, n_max), draws.eps, generator, xs)
+        prior_x = w @ _rff_phi(state.x_buf, omega, b, ls, p["outputscale"]).mT  # (n_paths, N_max)
+        prior_c = w @ _rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
+        # the exact update direction u = (K+σ²I)⁻¹(r − prior_x − ε), inactive
+        # rows zeroed: the identity-padded factor keeps them zero
+        rhs = torch.where(state.mask[None, :], _residual(state)[None, :] - prior_x - eps, torch.zeros_like(prior_x))
+        u = L.cho_solve(state.chol, rhs.mT)  # (N_max, n_paths)
+        k_cross = G._kernel_matrix(p, xs, state.x_buf, config, add_noise=False)  # (n_cand, N_max)
+        k_cross = torch.where(state.mask[None, :], k_cross, torch.zeros_like(k_cross))
+        draws_std = p["mean"] + prior_c + (k_cross @ u).mT
+        return draws_std * state.y_std + state.y_mean
 
 
 def rff_thompson_select(

@@ -30,6 +30,7 @@ from turbojax_torch import linalg as L
 from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
 from turbojax_torch.config import GPConfig
+from turbojax_torch.runlog import span
 
 Tensor = torch.Tensor
 
@@ -186,32 +187,34 @@ def _suggest(
     returns (q, d) unit-cube points. ``cands`` ((n_candidates, d)) replaces
     the candidate draws (Sobol, and the local pool) and ``draws`` the
     Thompson sampler's (``bo.ts_sampler``)."""
-    dim = carry.x_buf.shape[-1]
-    dtype, device = carry.x_buf.dtype, carry.x_buf.device
-    mask = _mask(carry)
-    if cands is None:
-        n_local = int(bo.local_frac * bo.n_candidates)
-        cands = S.sobol_sample(dim, bo.n_candidates - n_local, generator, dtype, device, bo.sobol_scramble)
-        if n_local:
-            inc = carry.x_buf.index_select(0, torch.argmin(torch.where(mask, carry.y_buf, torch.inf)).reshape(1))
-            local = inc + bo.local_sigma * torch.randn((n_local, dim), generator=generator, dtype=dtype, device=device)
-            cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
-    state = _state_from_carry(carry, config)
-    if bo.acq == "ts":
-        values = A.thompson_values(state, cands, bo.batch_size, config, bo.ts_sampler, bo.ts_chunk, bo.ts_dtype,
-                                   bo.rff_features, generator, draws)
-        return cands[A.select_q_batch(values)[0]]
-    mu, var = G.gp_posterior(state, cands, config)
-    if bo.acq == "ei":
-        # the incumbent lives in the same (possibly warped) space as the
-        # posterior: warp_y is monotone, so min commutes with it
-        best = T.warp_y(torch.where(mask, carry.y_buf, torch.inf).min(), config.y_warp)
-        scores = -A.expected_improvement(mu, var, best, bo.xi)  # minimize −EI
-    elif bo.acq == "lcb":
-        scores = A.lower_confidence_bound(mu, var, bo.kappa)
-    else:
-        raise ValueError(f"unknown acquisition {bo.acq!r}")
-    return cands[lowest_k(scores, bo.batch_size)]
+    with span("bo.suggest"):
+        dim = carry.x_buf.shape[-1]
+        dtype, device = carry.x_buf.dtype, carry.x_buf.device
+        mask = _mask(carry)
+        if cands is None:
+            n_local = int(bo.local_frac * bo.n_candidates)
+            cands = S.sobol_sample(dim, bo.n_candidates - n_local, generator, dtype, device, bo.sobol_scramble)
+            if n_local:
+                inc = carry.x_buf.index_select(0, torch.argmin(torch.where(mask, carry.y_buf, torch.inf)).reshape(1))
+                noise = torch.randn((n_local, dim), generator=generator, dtype=dtype, device=device)
+                local = inc + bo.local_sigma * noise
+                cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
+        state = _state_from_carry(carry, config)
+        if bo.acq == "ts":
+            values = A.thompson_values(state, cands, bo.batch_size, config, bo.ts_sampler, bo.ts_chunk, bo.ts_dtype,
+                                       bo.rff_features, generator, draws)
+            return cands[A.select_q_batch(values)[0]]
+        mu, var = G.gp_posterior(state, cands, config)
+        if bo.acq == "ei":
+            # the incumbent lives in the same (possibly warped) space as the
+            # posterior: warp_y is monotone, so min commutes with it
+            best = T.warp_y(torch.where(mask, carry.y_buf, torch.inf).min(), config.y_warp)
+            scores = -A.expected_improvement(mu, var, best, bo.xi)  # minimize −EI
+        elif bo.acq == "lcb":
+            scores = A.lower_confidence_bound(mu, var, bo.kappa)
+        else:
+            raise ValueError(f"unknown acquisition {bo.acq!r}")
+        return cands[lowest_k(scores, bo.batch_size)]
 
 
 def _bo_init(

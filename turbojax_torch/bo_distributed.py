@@ -46,6 +46,7 @@ from turbojax_torch.api import _resolve_device
 from turbojax_torch.bo import BOConfig, lowest_k
 from turbojax_torch.config import GPConfig
 from turbojax_torch.distributed_linalg import DENSE_BUDGET_BYTES, DistributedGP, fit_gp_auto, refactor_gp_auto
+from turbojax_torch.runlog import span
 
 Tensor = torch.Tensor
 
@@ -156,11 +157,15 @@ def run_bo_distributed(
     ub_t = torch.tensor(tuple(ub), dtype=dtype, device=device)
     q = bo.batch_size
 
+    def caller_fn(x: Tensor) -> Tensor:
+        with span("bo.callback"):
+            return fn(x)
+
     def evaluate(x_unit: Tensor) -> Tensor:
         x = T.from_unit_cube(x_unit, lb_t, ub_t)
         if mesh is not None:
-            return PAR.evaluate_on_rank0(fn, x, mesh)
-        return fn(x).to(dtype).reshape(-1)
+            return PAR.evaluate_on_rank0(caller_fn, x, mesh)
+        return caller_fn(x).to(dtype).reshape(-1)
 
     def pinned() -> G.GPParams:
         return fixed_params if fixed_params is not None else G.default_params(dim, config, dtype, device)
@@ -183,87 +188,95 @@ def run_bo_distributed(
     x_hist, y_hist, warm = state["x"], state["y"], state["warm"]
 
     for it in range(len(trace), bo.n_iters):
-        t_it = time.perf_counter()
-        d_it = draws(it) if draws is not None else IterationDraws()
-        panel = _auto_panel(max(x_hist.shape[0] // n_dev, 1))
-        route = dict(mesh=mesh, panel=panel, budget_bytes=budget_bytes)
-        if bo.fit_every == 0:
-            # 0 = never fit: pin the given (or default) hypers and only refresh
-            # the factorization as the history grows. Routing on `g is None`
-            # here would sneak one full MLL fit in at iteration 0.
-            if warm is None:
-                warm = pinned()
-            g = refactor_gp_auto(x_hist, y_hist, warm, config, **route)
-        elif warm is None or it % bo.fit_every == 0:
-            # `warm is None`, not `g is None`: a resumed run starts at an
-            # arbitrary `it`, and an off-cadence iteration must refactorize at
-            # the restored hypers, as the uninterrupted run did, not fit
-            g = fit_gp_auto(x_hist, y_hist, config, warm_start=warm, generator=generator,
-                            restart_uniforms=d_it.restart_uniforms, **route)
-            warm = g.raw
-        else:
-            # off-cadence: the hypers stay pinned, but the factorization must
-            # cover the grown history (a stale factor skips the newest batches)
-            g = refactor_gp_auto(x_hist, y_hist, warm, config, **route)
-
-        n_local = int(bo.local_frac * bo.n_candidates)
-        cands = d_it.sobol
-        if cands is None:
-            cands = S.sobol_sample(dim, bo.n_candidates - n_local, generator, dtype, device, bo.sobol_scramble)
-        cands = cands.to(dtype=dtype, device=device)
-        if n_local:
-            inc = x_hist.index_select(0, torch.argmin(y_hist).reshape(1))
-            noise = d_it.local
-            if noise is None:
-                noise = torch.randn((n_local, dim), generator=generator, dtype=dtype, device=device)
-            local = inc + bo.local_sigma * noise.to(dtype=dtype, device=device)
-            cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
-
-        distributed = isinstance(g, DistributedGP)
-        if bo.acq == "ts":
-            # pathwise draws, globally joint over the candidates, conditioned
-            # exactly through the cached (dense or row-sharded) factor; the
-            # warp is monotone in y, so the argmin selection is unchanged
-            if distributed:
-                values = g.pathwise_paths(cands, q, bo.rff_features, generator, d_it.ts)
+        with span("bo.iteration"):
+            t_it = time.perf_counter()
+            if draws is not None:
+                with span("bo.callback"):
+                    d_it = draws(it)
             else:
-                values = A.pathwise_paths(g.state, cands, q, config, bo.rff_features, generator, d_it.ts)
-            x_new = cands[A.select_q_batch(values)[0]]
-        else:
-            # the surrogate predicts warp_y(y), so the EI incumbent is warped
-            # too (monotone: the warp commutes with min)
-            best = T.warp_y(y_hist.min(), config.y_warp)
-            n_cand = cands.shape[0]
-            cand_min = bo.cand_shard_min if bo.cand_shard_min is not None else CAND_SHARD_MIN
-            if (n_dev > 1 and not distributed and n_cand % n_dev == 0 and q <= n_cand // n_dev
-                    and n_cand >= cand_min):
-                # the candidate axis sharded: the dense state is replicated,
-                # each rank scores its block, and the global top-q rides an
-                # all-gather of q·D survivors
-                shard = n_cand // n_dev
-                x_new, _ = PAR.sharded_acq_topq(g.state, cands[mesh.rank * shard:(mesh.rank + 1) * shard], best, q,
-                                                mesh, config, acq=bo.acq, kappa=bo.kappa, xi=bo.xi)
+                d_it = IterationDraws()
+            panel = _auto_panel(max(x_hist.shape[0] // n_dev, 1))
+            route = dict(mesh=mesh, panel=panel, budget_bytes=budget_bytes)
+            if bo.fit_every == 0:
+                # 0 = never fit: pin the given (or default) hypers and only refresh
+                # the factorization as the history grows. Routing on `g is None`
+                # here would sneak one full MLL fit in at iteration 0.
+                if warm is None:
+                    warm = pinned()
+                g = refactor_gp_auto(x_hist, y_hist, warm, config, **route)
+            elif warm is None or it % bo.fit_every == 0:
+                # `warm is None`, not `g is None`: a resumed run starts at an
+                # arbitrary `it`, and an off-cadence iteration must refactorize at
+                # the restored hypers, as the uninterrupted run did, not fit
+                g = fit_gp_auto(x_hist, y_hist, config, warm_start=warm, generator=generator,
+                                restart_uniforms=d_it.restart_uniforms, **route)
+                warm = g.raw
             else:
-                mu, var = g.posterior(cands)
-                if bo.acq == "ei":
-                    scores = -A.expected_improvement(mu, var, best, bo.xi)
+                # off-cadence: the hypers stay pinned, but the factorization must
+                # cover the grown history (a stale factor skips the newest batches)
+                g = refactor_gp_auto(x_hist, y_hist, warm, config, **route)
+
+            n_local = int(bo.local_frac * bo.n_candidates)
+            cands = d_it.sobol
+            if cands is None:
+                cands = S.sobol_sample(dim, bo.n_candidates - n_local, generator, dtype, device, bo.sobol_scramble)
+            cands = cands.to(dtype=dtype, device=device)
+            if n_local:
+                inc = x_hist.index_select(0, torch.argmin(y_hist).reshape(1))
+                noise = d_it.local
+                if noise is None:
+                    noise = torch.randn((n_local, dim), generator=generator, dtype=dtype, device=device)
+                local = inc + bo.local_sigma * noise.to(dtype=dtype, device=device)
+                cands = torch.cat([cands, torch.clamp(local, 0.0, 1.0)], dim=0)
+
+            distributed = isinstance(g, DistributedGP)
+            if bo.acq == "ts":
+                # pathwise draws, globally joint over the candidates, conditioned
+                # exactly through the cached (dense or row-sharded) factor; the
+                # warp is monotone in y, so the argmin selection is unchanged
+                if distributed:
+                    values = g.pathwise_paths(cands, q, bo.rff_features, generator, d_it.ts)
                 else:
-                    scores = A.lower_confidence_bound(mu, var, bo.kappa)
-                x_new = cands[lowest_k(scores, q)]
+                    values = A.pathwise_paths(g.state, cands, q, config, bo.rff_features, generator, d_it.ts)
+                x_new = cands[A.select_q_batch(values)[0]]
+            else:
+                # the surrogate predicts warp_y(y), so the EI incumbent is warped
+                # too (monotone: the warp commutes with min)
+                best = T.warp_y(y_hist.min(), config.y_warp)
+                n_cand = cands.shape[0]
+                cand_min = bo.cand_shard_min if bo.cand_shard_min is not None else CAND_SHARD_MIN
+                if (n_dev > 1 and not distributed and n_cand % n_dev == 0 and q <= n_cand // n_dev
+                        and n_cand >= cand_min):
+                    # the candidate axis sharded: the dense state is replicated,
+                    # each rank scores its block, and the global top-q rides an
+                    # all-gather of q·D survivors
+                    shard = n_cand // n_dev
+                    x_new, _ = PAR.sharded_acq_topq(g.state, cands[mesh.rank * shard:(mesh.rank + 1) * shard], best, q,
+                                                    mesh, config, acq=bo.acq, kappa=bo.kappa, xi=bo.xi)
+                else:
+                    mu, var = g.posterior(cands)
+                    if bo.acq == "ei":
+                        scores = -A.expected_improvement(mu, var, best, bo.xi)
+                    else:
+                        scores = A.lower_confidence_bound(mu, var, bo.kappa)
+                    x_new = cands[lowest_k(scores, q)]
 
-        y_new = T.impute_failures(evaluate(x_new), y_hist, torch.ones_like(y_hist, dtype=torch.bool))
-        x_hist = torch.cat([x_hist, x_new], dim=0)
-        y_hist = torch.cat([y_hist, y_new])
-        trace.append(y_hist.min())
-        if on_iteration is not None or runlog is not None:
-            best_f = float(trace[-1])
-            if on_iteration is not None:
-                on_iteration(it, best_f)
-            if runlog is not None:
-                runlog.log(it, best_y=best_f, n=int(x_hist.shape[0]),
-                           route="distributed" if distributed else "dense",
-                           iter_s=round(time.perf_counter() - t_it, 4))
-        ckpt.maybe_save(it + 1, {"x": x_hist, "y": y_hist, "warm": warm}, trace, last=it + 1 == bo.n_iters)
+            y_new = T.impute_failures(evaluate(x_new), y_hist, torch.ones_like(y_hist, dtype=torch.bool))
+            x_hist = torch.cat([x_hist, x_new], dim=0)
+            y_hist = torch.cat([y_hist, y_new])
+            trace.append(y_hist.min())
+            if on_iteration is not None or runlog is not None:
+                with span("sync.bo.incumbent"):
+                    best_f = float(trace[-1])
+                if on_iteration is not None:
+                    with span("bo.callback"):
+                        on_iteration(it, best_f)
+                if runlog is not None:
+                    with span("bo.callback"):
+                        runlog.log(it, best_y=best_f, n=int(x_hist.shape[0]),
+                                   route="distributed" if distributed else "dense",
+                                   iter_s=round(time.perf_counter() - t_it, 4))
+            ckpt.maybe_save(it + 1, {"x": x_hist, "y": y_hist, "warm": warm}, trace, last=it + 1 == bo.n_iters)
 
     best_i = torch.argmin(y_hist).reshape(1)
     return BigBOResult(

@@ -54,6 +54,7 @@ from turbojax_torch import linalg as L
 from turbojax_torch import transforms as T
 from turbojax_torch.config import GPConfig
 from turbojax_torch.parallel import Mesh, all_sum, all_true, broadcast_from, gather_rows
+from turbojax_torch.runlog import span
 
 Tensor = torch.Tensor
 
@@ -386,8 +387,11 @@ def fit_distributed_gp(x: Tensor, y: Tensor, mesh: Mesh, config: GPConfig = GPCo
     dim = x.shape[-1]
     y_std, _, _ = _standardized(y, config)
     raw0 = G.default_params(dim, config, x.dtype, x.device)
-    if warm_start is not None and bool(G._finite_rows(warm_start)):
-        raw0 = G.GPParams(*(a.to(x.dtype) for a in warm_start))
+    if warm_start is not None:
+        with span("sync.dlinalg.warm_start"):
+            finite = bool(G._finite_rows(warm_start))
+        if finite:
+            raw0 = G.GPParams(*(a.to(x.dtype) for a in warm_start))
     raw = _fit_distributed_raw(raw0, x, y_std, mesh, config, panel, steps or config.fit_maxiter)
     return _assemble_distributed_gp(x, y, raw, config, mesh, panel)
 
@@ -470,24 +474,25 @@ def distributed_pathwise_paths(dgp: DistributedGP, xs: Tensor, n_paths: int, n_f
     every rank), so with the same generator state the dense and distributed
     samplers agree to solver precision; ``draws`` replaces them. Returns
     (n_paths, n_cand) in the model's unstandardized units."""
-    mesh, x, p = dgp.mesh, dgp.x, dgp.params
-    n, dim = x.shape
-    kw = dict(dtype=xs.dtype, device=xs.device)
-    omega, b = draws.omega, draws.b
-    if omega is None or b is None:
-        omega, b = A.rff_frequencies(dim, n_features, dgp.kernel, generator, xs.dtype, xs.device)
-    omega, b = omega.to(**kw), b.to(**kw)
-    ls = torch.broadcast_to(p["lengthscale"], (dim,))
-    w = A._normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
-    eps = torch.sqrt(p["noise"]) * A._normals((n_paths, n), draws.eps, generator, xs)
-    # rhs = r − φ(X)ᵀw − ε on the rank's rows: the (N/D, M) φ block, never a global (N, M)
-    phi_rows = A._rff_phi(dgp._rows(x), omega, b, ls, p["outputscale"])
-    rhs = (dgp._rows(dgp.y) - dgp.mean)[:, None] - phi_rows @ w.mT - dgp._rows(eps.mT)
-    u = distributed_cho_solve(dgp.chol, rhs, mesh, dgp.panel)  # (N/D, n_paths)
-    k_cross = distributed_cross_covariance(p, x, xs, mesh, dgp.kernel)  # (N/D, n_cand)
-    update = all_sum(k_cross.mT @ u, mesh)  # (n_cand, n_paths)
-    prior_c = w @ A._rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
-    return dgp.y_mean + dgp.y_sd * (dgp.mean + prior_c + update.mT)
+    with span("acq.sample"):
+        mesh, x, p = dgp.mesh, dgp.x, dgp.params
+        n, dim = x.shape
+        kw = dict(dtype=xs.dtype, device=xs.device)
+        omega, b = draws.omega, draws.b
+        if omega is None or b is None:
+            omega, b = A.rff_frequencies(dim, n_features, dgp.kernel, generator, xs.dtype, xs.device)
+        omega, b = omega.to(**kw), b.to(**kw)
+        ls = torch.broadcast_to(p["lengthscale"], (dim,))
+        w = A._normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
+        eps = torch.sqrt(p["noise"]) * A._normals((n_paths, n), draws.eps, generator, xs)
+        # rhs = r − φ(X)ᵀw − ε on the rank's rows: the (N/D, M) φ block, never a global (N, M)
+        phi_rows = A._rff_phi(dgp._rows(x), omega, b, ls, p["outputscale"])
+        rhs = (dgp._rows(dgp.y) - dgp.mean)[:, None] - phi_rows @ w.mT - dgp._rows(eps.mT)
+        u = distributed_cho_solve(dgp.chol, rhs, mesh, dgp.panel)  # (N/D, n_paths)
+        k_cross = distributed_cross_covariance(p, x, xs, mesh, dgp.kernel)  # (N/D, n_cand)
+        update = all_sum(k_cross.mT @ u, mesh)  # (n_cand, n_paths)
+        prior_c = w @ A._rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
+        return dgp.y_mean + dgp.y_sd * (dgp.mean + prior_c + update.mT)
 
 
 # --------------------------------------------------------------------------

@@ -25,13 +25,13 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from turbojax_torch import cuda_kernels as CK
 from turbojax_torch import kernels as K
 from turbojax_torch import linalg as L
 from turbojax_torch import transforms as T
 from turbojax_torch.config import GPConfig
+from turbojax_torch.runlog import span
 
 Tensor = torch.Tensor
 
@@ -278,10 +278,11 @@ def _fit_one(
     dim = x_buf.shape[-1]
 
     def loss(raw: GPParams) -> Tensor:
-        val = mll(raw, x_buf, y_std, mask, config)
-        if config.fit_prior != "none":
-            val = val + log_prior(raw, dim, config)  # the MAP objective
-        return -val / n_act
+        with span("gp.loss"):
+            val = mll(raw, x_buf, y_std, mask, config)
+            if config.fit_prior != "none":
+                val = val + log_prior(raw, dim, config)  # the MAP objective
+            return -val / n_act
 
     raw0 = GPParams(*(a.detach() for a in raw0))
     if config.fit_optimizer == "adam":
@@ -333,12 +334,14 @@ def _fit_adam(raw: GPParams, loss, config: GPConfig) -> Tuple[GPParams, Tensor, 
         if early:
             if step > warmup:
                 active = active & ((improv >= config.fit_ftol) | ~torch.isfinite(improv))
-            if not bool(active.any()):
+            with span("sync.gp.adam_active"):
+                stopped = not bool(active.any())
+            if stopped:
                 break
         leaves = [a.clone().requires_grad_(True) for a in raw]
         values = loss(GPParams(*leaves))
         evals += 1
-        with record_function("gp.polish_backward"):
+        with span("gp.polish_backward"):
             grads = torch.autograd.grad(values.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(a) if g is None else torch.where(torch.isfinite(g), g, torch.zeros_like(g))
                  for a, g in zip(raw, grads)]
@@ -418,7 +421,7 @@ def _fit_lbfgs(raw0: GPParams, loss, config: GPConfig) -> Tuple[GPParams, Tensor
         v = vec.detach().clone().requires_grad_(True)
         raw = _unflatten(v)
         values = loss(GPParams(*(a[0] for a in raw)) if single else raw).reshape(lanes)
-        with record_function("gp.polish_backward"):
+        with span("gp.polish_backward"):
             (g,) = torch.autograd.grad(values.sum(), v)
         values = values.detach()
         return (torch.where(torch.isfinite(values), values, torch.full_like(values, torch.inf)),
@@ -438,7 +441,9 @@ def _fit_lbfgs(raw0: GPParams, loss, config: GPConfig) -> Tuple[GPParams, Tensor
     tiny = _LBFGS_RESOLUTION * torch.finfo(dtype).eps
 
     for _ in range(config.fit_maxiter):
-        if bool(done.all()):
+        with span("sync.gp.lbfgs_done"):
+            all_done = bool(done.all())
+        if all_done:
             break
         # the two-loop recursion, newest pair first (slot 0)
         q = g.clone()
@@ -478,7 +483,9 @@ def _fit_lbfgs(raw0: GPParams, loss, config: GPConfig) -> Tuple[GPParams, Tensor
             hi = torch.where(searching & too_long, t, hi)
             lo = torch.where(searching & ~too_long, t, lo)
             t = torch.where(searching, torch.where(torch.isinf(hi), 2.0 * t, 0.5 * (lo + hi)), t)
-            if not bool(searching.any()):
+            with span("sync.gp.lbfgs_search"):
+                ended = not bool(searching.any())
+            if ended:
                 break
 
         moved = ~done & torch.isfinite(best_f)
@@ -666,11 +673,12 @@ def make_gp_state(x_buf: Tensor, y_buf: Tensor, mask: Tensor, raw: GPParams, con
     """Factorize once for the given hypers (with the jitter ladder, per
     matrix) and cache (chol, alpha). Leading axes on the buffers and on
     ``raw`` give a stacked state; ``state_lane`` takes one out."""
-    params = constrain_params(raw, config)
-    y_std_buf, y_mean, y_sd = T.standardize(T.warp_y(y_buf, config.y_warp), mask)
-    chol = _masked_kernel_chol(params, x_buf, mask, config, ladder=True)
-    resid = torch.where(mask, y_std_buf - params["mean"][..., None], torch.zeros_like(y_std_buf))
-    alpha = L.cho_solve(chol, resid)
+    with span("gp.factor"):
+        params = constrain_params(raw, config)
+        y_std_buf, y_mean, y_sd = T.standardize(T.warp_y(y_buf, config.y_warp), mask)
+        chol = _masked_kernel_chol(params, x_buf, mask, config, ladder=True)
+        resid = torch.where(mask, y_std_buf - params["mean"][..., None], torch.zeros_like(y_std_buf))
+        alpha = L.cho_solve(chol, resid)
     return GPState(
         x_buf=x_buf, mask=mask, params=params, raw=raw, chol=chol, alpha=alpha,
         y_mean=y_mean, y_std=y_sd,
@@ -744,7 +752,7 @@ def posterior_cov(
     mu_s = state.params["mean"] + k_cross.mT @ state.alpha
     zs, _ = _scale_center(state.params, xs, xs)
     ts_cov = CK.ts_cov_reference if config.use_kernel is False else CK.ts_cov
-    with record_function("gp.ts_cov"):
+    with span("gp.ts_cov"):
         cov_s = ts_cov(zs, v, state.params["outputscale"], 0.0, config.kernel)
     if include_noise:
         cov_s = cov_s + state.params["noise"] * torch.eye(xs.shape[0], dtype=cov_s.dtype, device=cov_s.device)

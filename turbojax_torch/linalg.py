@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+from turbojax_torch.runlog import span
+
 Tensor = torch.Tensor
 
 
@@ -72,15 +74,20 @@ def safe_cholesky(k_mat: Tensor, jitters: Tuple[float, ...] = (0.0, 1e-8, 1e-6, 
     factor; a matrix that fails the last rung comes back NaN. The next rung
     runs only while some matrix still fails: one host sync per rung tried
     (one in the common case)."""
-    l_mat, info = cholesky_nan(_bumped(k_mat, jitters[0]))
-    for rel in jitters[1:]:
-        failed = info != 0
-        if not bool(failed.any()):
-            break
-        l_next, info_next = cholesky_nan(_bumped(k_mat, rel))
-        l_mat = torch.where(failed[..., None, None], l_next, l_mat)
-        info = torch.where(failed, info_next, info)
-    return l_mat
+    with span("linalg.cholesky_ladder"):
+        with span("linalg.cholesky_rung"):
+            l_mat, info = cholesky_nan(_bumped(k_mat, jitters[0]))
+        for rel in jitters[1:]:
+            failed = info != 0
+            with span("sync.linalg.ladder"):
+                done = not bool(failed.any())
+            if done:
+                break
+            with span("linalg.cholesky_rung"):
+                l_next, info_next = cholesky_nan(_bumped(k_mat, rel))
+            l_mat = torch.where(failed[..., None, None], l_next, l_mat)
+            info = torch.where(failed, info_next, info)
+        return l_mat
 
 
 def _as_matrix(b: Tensor, l_mat: Tensor) -> Tuple[Tensor, bool]:

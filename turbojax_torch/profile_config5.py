@@ -22,8 +22,9 @@ above) up to iteration K, traces
 iteration K with ``torch.profiler`` and prints its split: the device's busy
 time and idle share, device time by kernel family (Cholesky, triangular
 solves, GEMM, the two hand-written kernels), the polish backward's device
-time, and the host time inside the fit, polish-backward, Thompson and
-TS-covariance spans. ``--profile-run`` traces one whole run of ``--config``
+time, and the host time inside each span the trace holds (``runlog.span``:
+the fit, polish-backward, Thompson, TS-covariance, ladder and sync spans
+among them). ``--profile-run`` traces one whole run of ``--config``
 (seed 0, after an untraced run; meant for the short configurations) and
 prints its wall, the device's busy time and idle share. Every line carries the card's ``nvidia-smi`` name and
 power limit. Needs a CUDA GPU.
@@ -47,7 +48,6 @@ from turbojax_torch import cuda_kernels as CK
 from turbojax_torch import registry as R
 from turbojax_torch import turbo_m as TM
 
-_SPANS = ("turbom.fit", "turbom.state", "gp.polish_backward", "turbom.thompson", "gp.ts_cov")
 _FAMILIES = {  # kernel-name fragment -> family
     "ts_cov_partial": "ts_cov kernel", "ts_cov_gram": "ts_cov kernel", "ts_cov_finish": "ts_cov kernel",
     "kernel_matrix_tile": "kernel_matrix kernel",
@@ -175,14 +175,22 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _span_names(prof) -> set:
+    """The names of the trace's spans: its host-side user annotations."""
+    cpu = torch.autograd.DeviceType.CPU
+    return {evt.name for evt in prof.events() if evt.device_type == cpu and evt.is_user_annotation}
+
+
 def _device_split(prof):
     """(busy ms, {kernel family: ms}) of a trace: the own time of the
     device-side entries. The kernels, copies and sets have no CPU time; the
-    spans' device-timeline annotations are not work."""
+    spans' device-timeline annotations, named as the trace's own spans, are
+    not work."""
     families, busy_ms = {}, 0.0
+    spans = _span_names(prof)
     for evt in prof.key_averages():
         own = _self_device_us(evt) / 1e3
-        if own > 0 and evt.cpu_time_total == 0 and not evt.key.startswith(_SPANS):
+        if own > 0 and evt.cpu_time_total == 0 and evt.key not in spans:
             busy_ms += own
             fam = next((f for frag, f in _FAMILIES.items() if frag in evt.key.lower()), "elementwise and other")
             families[fam] = families.get(fam, 0.0) + own
@@ -218,8 +226,9 @@ def profile_iteration(k: int, card: str, trace_path: Optional[str] = None, **tur
         pass
     wall_ms = marks["wall"] * 1e3
     host_ms = {}
+    spans = _span_names(prof)
     for evt in prof.events():  # the spans' host time, on the CPU timeline
-        if evt.device_type == torch.autograd.DeviceType.CPU and evt.name.startswith(_SPANS):
+        if evt.device_type == torch.autograd.DeviceType.CPU and evt.name in spans:
             host_ms[evt.name] = host_ms.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
     backward_ms = sum(_device_us(evt) for evt in prof.key_averages()
                       if evt.key.startswith("autograd::engine::evaluate_function")) / 1e3

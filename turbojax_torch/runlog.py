@@ -3,8 +3,9 @@
 ``RunLog`` keeps the verbose stdout of the best value per batch
 (``verbose=True``) and writes one JSON record per iteration (incumbent, TR
 length, timings) to an append-only JSONL file. ``profile`` wraps a region in
-``torch.profiler.profile`` and writes a Chrome trace; ``annotate`` is a named
-profiler span (``torch.profiler.record_function``). ``start_profiler_server``
+``torch.profiler.profile`` and writes a Chrome trace; ``span`` is a named
+profiler span (``torch.profiler.record_function``) that costs one check when
+no profiler is recording. ``start_profiler_server``
 lets a running process be traced on demand: each ``SIGUSR2`` opens or closes
 a profiler window.
 """
@@ -79,11 +80,19 @@ def _export(prof, trace_dir: str) -> None:
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named profiler span around fit/acquisition/selection phases."""
-    with torch.profiler.record_function(name):
-        yield
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named profiler span: ``torch.profiler.record_function(name)`` while
+    a profiler is recording, else one shared null context, so that a span
+    costs an untraced run one check (``record_function`` itself costs
+    several microseconds with no profiler). Every span of the package goes
+    through here; a span never reads a device value, and the number of
+    spans of a name in a trace is its counter."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class _SignalProfiler:

@@ -27,13 +27,13 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from turbojax_torch import acq as A
 from turbojax_torch import gp as G
 from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
 from turbojax_torch.config import GPConfig
+from turbojax_torch.runlog import span
 from turbojax_torch.trust_region import (
     TurboCarry, TurboConfig, _stream_len, absorb, candidates, carry_lane, make_turbo_carry, refits_now,
     stack_carries,
@@ -210,7 +210,7 @@ def region_values(
         for members, fit in ((refit, True), ([i for i in group if i not in refit], False)):
             if not members:
                 continue
-            with record_function(f"turbom.{'fit' if fit else 'state'}[{len(members)}x{c}]"):
+            with span(f"turbom.{'fit' if fit else 'state'}[{len(members)}x{c}]"):
                 idx = torch.tensor(members, device=device)
                 counts = torch.tensor([carries.n[i] for i in members], device=device)
                 mask = torch.arange(c, device=device)[None, :] < counts[:, None]
@@ -238,7 +238,7 @@ def region_values(
             cands = dr.cands
             if cands is None:
                 cands = candidates(carry_lane(carries, i), state, cfg, n_cand, generator)
-            with record_function("turbom.thompson"):
+            with span("turbom.thompson"):
                 values = A.thompson_values(state, cands, q, config, cfg.ts_sampler, cfg.ts_chunk, cfg.ts_dtype,
                                            cfg.rff_features, generator, dr.sampler)
         cands_all.append(cands.to(dtype))
