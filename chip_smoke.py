@@ -66,8 +66,11 @@ non-zero and the final line is not printed:
    ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
    2048 buffer, 5000 candidates, EI, Thompson q = 10 in chunks of 1000)
    with the kernels and with the plain versions; ``bo._append_batch``'s
-   appends against one refactorization at N = 64, 512 and 2048, and one
-   L-BFGS fit at (4, 112, 6) with its loss evaluations and wall;
+   appends against one refactorization at N = 64, 512 and 2048, one
+   L-BFGS fit at (4, 112, 6) with its loss evaluations and wall, and
+   ``linalg.chol_inverse`` (the marginal likelihood's backward) at
+   N = 16384 beside its bound and ``torch.cholesky_inverse`` (within 1e-4
+   of it);
 4. config 4 (``turbo1_ackley10``: TuRBO-1, Ackley-10D, 1000 evaluations,
    seed 0) end to end through ``turbojax_torch.optimize``;
 5. config 5 (``turbom5_rover60``: TuRBO-m with m = 5, rover-60D, 2000
@@ -700,6 +703,9 @@ def phase3_timings(smi):
         _require(line["max_abs_diff"] <= 1e-4, f"append and refactorization disagree: {line}")
         _emit({"phase": 3, "chol": "append_against_refactor", **line})
     _emit({"phase": 3, **KB.lbfgs_fit(smi)})
+    line = KB.chol_inverse(smi)
+    _require(line["max_rel_diff"] <= 1e-4, f"chol_inverse and torch.cholesky_inverse disagree: {line}")
+    _emit({"phase": 3, **line})
     return ((lines[KB.KM_HEADLINE], lines[KB.KM_F64_HEADLINE], lines[KB.KM_LARGE_HEADLINE]),
             (lines[KB.TS_HEADLINE], lines[KB.TS_F64_HEADLINE], lines[KB.TS_LARGE_HEADLINE]))
 

@@ -127,3 +127,29 @@ def test_batch_row_that_fails_is_nan_and_scores_minus_inf_in_grid(rng, monkeypat
     jscores = [float(JG.mll(JG.GPParams(*(a[i] for a in jgrid)), jnp.asarray(x), jnp.asarray(y_std.numpy()),
                             jnp.asarray(mask.numpy()), jcfg)) for i in range(len(clean))]
     np.testing.assert_allclose(clean.numpy(), jscores, **F64)
+
+
+@pytest.mark.parametrize(
+    "base, n, lead, n_active",
+    [(2048, 37, (), 37),  # below the base: one triangular solve against the identity, one product
+     (8, 8, (), 8),  # at the base
+     (8, 9, (3,), 9),  # one split, odd, a batch of three
+     (4, 37, (2,), 37),  # odd, four levels of the recursion
+     (5, 64, (2, 2), 50),  # two leading axes; an identity-padded block of 14 rows
+     (3, 101, (), 80)],
+)
+def test_chol_inverse_matches_cholesky_inverse(rng, monkeypatch, base, n, lead, n_active):
+    """``chol_inverse`` against ``torch.cholesky_inverse`` in f64, with the
+    recursion's base set small so that the recursion runs at these sizes;
+    the result is exactly symmetric, and a padded block's inverse is the
+    identity's."""
+    monkeypatch.setattr(TL, "_CHOL_INVERSE_BASE", base)
+    k = np.stack([_spd(rng, n) for _ in range(int(np.prod(lead, dtype=int)))]).reshape(lead + (n, n))
+    mask = TL.row_mask(n, n_active)
+    l_mat = torch.linalg.cholesky(TL.mask_kernel_matrix(_t(k), mask))
+    got = TL.chol_inverse(l_mat)
+    assert got.shape == l_mat.shape
+    torch.testing.assert_close(got, torch.cholesky_inverse(l_mat), **F64)
+    assert torch.equal(got, got.mT)
+    assert torch.equal(got[..., n_active:, n_active:], torch.eye(n - n_active, dtype=got.dtype).expand(lead + (-1, -1)))
+    assert torch.equal(l_mat, torch.linalg.cholesky(TL.mask_kernel_matrix(_t(k), mask)))  # the factor is left as it was

@@ -124,6 +124,32 @@ def test_a_large_n_loop_records_iterations_fits_and_callbacks():
     assert _inside(spans, "gp.loss", "bo.iteration") and not _inside(spans, "gp.loss", "gp.factor")
 
 
+def test_each_differentiated_loss_records_one_mll_vjp():
+    """An Adam fit of ``fit_maxiter`` steps over two lanes: one ``gp.mll_vjp``
+    (the closed-form backward, both lanes at once) inside each step's
+    ``gp.polish_backward``, none in the final forward (no gradient) nor in
+    the grid's scoring; an L-BFGS fit records one a loss evaluation."""
+    cfg = dataclasses.replace(GPConfig(), fit_optimizer="adam", fit_maxiter=3, fit_restarts=2)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((12, D), generator=g, dtype=torch.float64)
+    y = torch.sum((x - 0.3) ** 2, dim=-1)
+    mask = L.row_mask(12, 10)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        G.fit_gp(x, y, mask, cfg, restart_uniforms=torch.full((1, D + 2), 0.5, dtype=torch.float64))
+    spans = _spans(prof)
+    assert _count(spans, "gp.mll_vjp") == cfg.fit_maxiter == _count(spans, "gp.polish_backward")
+    assert _count(spans, "gp.loss") == cfg.fit_maxiter + 1
+    assert _inside(spans, "gp.mll_vjp", "gp.polish_backward")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        G.fit_gp(x, y, mask, dataclasses.replace(cfg, fit_optimizer="grid"))
+    assert _count(_spans(prof), "gp.mll_vjp") == 0
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        G.fit_gp(x, y, mask, dataclasses.replace(cfg, fit_optimizer="lbfgs", fit_maxiter=2), stats=stats,
+                 restart_uniforms=torch.full((1, D + 2), 0.5, dtype=torch.float64))
+    assert _count(_spans(prof), "gp.mll_vjp") == stats["loss_evals"] >= 2
+
+
 def test_span_is_one_null_context_without_a_profiler():
     assert not torch._C._autograd._profiler_enabled()
     first, second = RL.span("bo.suggest"), RL.span("gp.loss")

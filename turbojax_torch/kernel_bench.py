@@ -19,8 +19,9 @@ for the kernel matrix). Then the
 ``bench.py``-style iteration with the kernels and with the plain versions
 (its sizes are config 3's, ``ts_q10``), the appends of ``bo._append_batch``
 against one refactorization (``--chol`` prints only this table, which
-``BOConfig.resolved_chol_mode`` follows), and one L-BFGS fit at config 2's
-final size with its loss evaluations.
+``BOConfig.resolved_chol_mode`` follows), one L-BFGS fit at config 2's
+final size with its loss evaluations, and ``linalg.chol_inverse`` at
+N = 16384 against ``torch.cholesky_inverse``.
 
 ``--baseline DIR`` also times, in turns with this tree's kernels, the
 kernels of another checkout's ``turbojax_torch/cuda_kernels.py`` (for
@@ -379,6 +380,35 @@ def append_against_refactor(smi: str, reps: int = 20) -> List[Dict[str, object]]
     return lines
 
 
+CHOL_INVERSE_N = 16384
+
+
+def chol_inverse(smi: str, n: int = CHOL_INVERSE_N, reps: int = 5) -> Dict[str, object]:
+    """``linalg.chol_inverse`` of the float32 factor of an n × n Matérn-5/2
+    kernel matrix (d = 10, noise 1e-3): the marginal likelihood's backward
+    at the large-N refit's size. Its time by CUDA events and its device time,
+    beside its bound: 2n³/3 operations (the triangular inverse n³/3, the
+    triangular product n³/3) over 67 TFLOP/s; ``torch.cholesky_inverse``'s
+    times as ``library_ms`` and ``library_device_ms``, and the two results'
+    largest difference over the inverse's largest entry."""
+    from turbojax_torch import linalg as L
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    z, _, s, nz = _inputs_km(gen, 1, n, n, 10, True)
+    l_mat = torch.linalg.cholesky_ex(CK.kernel_matrix(z, z, s, nz, "matern52", True))[0]
+    fns = {"plain": lambda: L.chol_inverse(l_mat), "library": lambda: torch.cholesky_inverse(l_mat)}
+    ours, lib = fns["plain"](), fns["library"]()
+    rel = float((ours - lib).abs().max() / lib.abs().max())
+    del ours, lib
+    times = in_turns(fns, reps, warmup=1)
+    dev = device_ms(fns["plain"], reps)
+    bound = _bound(2.0 * 4 * n * n, 2.0 * n**3 / 3)  # L read once, the inverse written once
+    return {"routine": "chol_inverse", "n": n, "dtype": "float32", "base": L._CHOL_INVERSE_BASE, **bound,
+            "ms": times["plain"], "device_ms": dev, "share_of_bound": bound["bound_ms"] / dev if dev else None,
+            "library_ms": times["library"], "library_device_ms": device_ms(fns["library"], reps),
+            "max_rel_diff": rel, "card": smi}
+
+
 def lbfgs_fit(smi: str) -> Dict[str, object]:
     """One L-BFGS fit at config 2's final size (``hartmann6_lbfgs``: 112
     points, d = 6, 4 restarts as one batch of lanes, float32): its batched
@@ -485,6 +515,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         measure_kernels(smi, baseline, args.reps, emit=lambda line: print(json.dumps(line), flush=True))
         print(json.dumps({"bench_iteration_ms": bench_iteration(_check), "card": smi}), flush=True)
         print(json.dumps(lbfgs_fit(smi)), flush=True)
+        print(json.dumps(chol_inverse(smi)), flush=True)
     for line in append_against_refactor(smi, args.reps):
         print(json.dumps(line), flush=True)
     return 0

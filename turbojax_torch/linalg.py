@@ -16,7 +16,7 @@ partial, finite factor beside an ``info`` code. Every ladder below keys on
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -119,6 +119,131 @@ def masked_logdet_from_chol(l_mat: Tensor, mask: Tensor) -> Tensor:
     diag = l_mat.diagonal(dim1=-2, dim2=-1)
     safe = torch.where(mask, diag, torch.ones_like(diag))
     return 2.0 * torch.log(safe).sum(dim=-1)
+
+
+# (L Lᵀ)⁻¹ from the factor, LAPACK's potri (the triangular inverse, then the
+# triangular product) written as recursions on halves:
+#
+#   M = L⁻¹:  M₁₁, M₂₂ recursively, then M₂₁ = −M₂₂ (L₂₁ M₁₁);
+#   W = MᵀM:  W₁₁ = M₁₁ᵀM₁₁ + M₂₁ᵀM₂₁,  W₂₁ = M₂₂ᵀM₂₁,  W₂₂ = M₂₂ᵀM₂₂.
+#
+# Each product of a triangle with a block recurses on the triangle's halves
+# (a dense product for the square half), as M₂₁ᵀM₂₁ does on its columns
+# (only its lower triangle is needed), so the matrix products do about
+# 2N³/3 flops, against 2N³ for cholesky_solve(I); reverse mode through the
+# Cholesky takes 4N³. A triangle of at most this size is inverted by one
+# triangular solve against the identity and multiplied densely. Measured on
+# an NVIDIA H100 80GB HBM3 at 700 W (float32, N = 16484, CUDA events): 83.9 /
+# 85.7 / 95.1 / 115.7 ms at 512 / 1024 / 2048 / 4096, torch.cholesky_inverse
+# 207 ms. Config 5's polish (5 lanes of 2048, 40 Adam steps), same card: a
+# loss evaluation takes 17.4 ms at 1024, 18.4 ms at 2048 (no split).
+_CHOL_INVERSE_BASE = 1024
+
+
+def _half(n: int) -> int:
+    """Where a block of ``n`` splits: n/2, down to a multiple of 64 once that
+    is not 0, so that a block starts as aligned as the buffer's rows."""
+    return (n // 2) & ~63 or n // 2
+
+
+def _trmm_left_(x: Tensor, t: Tensor) -> None:
+    """x ← t x in place; t (B, r, r) lower-triangular (0 above), x (B, r, w)."""
+    r = t.shape[-1]
+    if r <= _CHOL_INVERSE_BASE:
+        x.copy_(torch.bmm(t, x))
+        return
+    h = _half(r)
+    _trmm_left_(x[:, h:], t[:, h:, h:])
+    x[:, h:].baddbmm_(t[:, h:, :h], x[:, :h])
+    _trmm_left_(x[:, :h], t[:, :h, :h])
+
+
+def _trmm_right_(y: Tensor, t: Tensor) -> None:
+    """y ← y t in place; t (B, k, k) lower-triangular (0 above), y (B, r, k)."""
+    k = t.shape[-1]
+    if k <= _CHOL_INVERSE_BASE:
+        y.copy_(torch.bmm(y, t))
+        return
+    h = _half(k)
+    _trmm_right_(y[..., :h], t[:, :h, :h])
+    y[..., :h].baddbmm_(y[..., h:], t[:, h:, :h])
+    _trmm_right_(y[..., h:], t[:, h:, h:])
+
+
+def _trmm_t_add_(d: Tensor, t: Tensor, z: Tensor) -> None:
+    """d += tᵀz; t (B, r, r) lower-triangular (0 above), z and d (B, r, w)."""
+    r = t.shape[-1]
+    if r <= _CHOL_INVERSE_BASE:
+        d.baddbmm_(t.mT, z)
+        return
+    h = _half(r)
+    _trmm_t_add_(d[:, :h], t[:, :h, :h], z[:, :h])
+    d[:, :h].baddbmm_(t[:, h:, :h].mT, z[:, h:])
+    _trmm_t_add_(d[:, h:], t[:, h:, h:], z[:, h:])
+
+
+def _syrk_add_(c: Tensor, a: Tensor) -> None:
+    """c += aᵀa in c's lower triangle (above it, a block may be written or
+    not); a (B, r, k), c (B, k, k)."""
+    k = a.shape[-1]
+    if k <= _CHOL_INVERSE_BASE:
+        c.baddbmm_(a.mT, a)
+        return
+    h = _half(k)
+    _syrk_add_(c[:, :h, :h], a[..., :h])
+    c[:, h:, :h].baddbmm_(a[..., h:].mT, a[..., :h])
+    _syrk_add_(c[:, h:, h:], a[..., h:])
+
+
+def _tri_inv_(m: Tensor) -> None:
+    """m ← m⁻¹ in place, for (B, n, n) lower-triangular m (0 above)."""
+    n = m.shape[-1]
+    if n <= _CHOL_INVERSE_BASE:
+        m.copy_(torch.linalg.solve_triangular(m, torch.eye(n, dtype=m.dtype, device=m.device), upper=False))
+        return
+    h = _half(n)
+    m11, m21, m22 = m[:, :h, :h], m[:, h:, :h], m[:, h:, h:]
+    _tri_inv_(m11)
+    _tri_inv_(m22)
+    _trmm_right_(m21, m11)
+    _trmm_left_(m21, m22)
+    m21.neg_()
+
+
+def _lauum_(m: Tensor, acc: Optional[Tensor] = None) -> None:
+    """m ← mᵀm (+ acc) in place, for (B, n, n) lower-triangular m (0 above),
+    written whole and exactly symmetric: each entry above the diagonal is a
+    copy of its mirror. Only ``acc``'s lower triangle is read; it is
+    overwritten."""
+    n = m.shape[-1]
+    if n <= _CHOL_INVERSE_BASE:
+        w = (torch.bmm(m.mT, m) if acc is None else torch.baddbmm(acc, m.mT, m)).tril_()
+        m.copy_(w + w.tril(-1).mT)
+        return
+    h = _half(n)
+    m11, m12, m21, m22 = m[:, :h, :h], m[:, :h, h:], m[:, h:, :h], m[:, h:, h:]
+    a11 = torch.zeros_like(m11) if acc is None else acc[:, :h, :h]
+    _syrk_add_(a11, m21)
+    _lauum_(m11, a11)
+    del a11
+    w21 = torch.zeros_like(m21) if acc is None else acc[:, h:, :h]
+    _trmm_t_add_(w21, m22, m21)
+    m21.copy_(w21)
+    m12.copy_(w21.mT)
+    del w21
+    _lauum_(m22, None if acc is None else acc[:, h:, h:])
+
+
+def chol_inverse(l_mat: Tensor) -> Tensor:
+    """(L Lᵀ)⁻¹ for a lower factor L of shape (..., N, N), as a new tensor,
+    exactly symmetric. Only L's lower triangle is read. Works in the result's
+    buffer: besides it, temporaries of at most N²/4 entries a matrix. A NaN
+    factor (a failed ``cholesky_nan``) gives a NaN inverse."""
+    n = l_mat.shape[-1]
+    out = torch.tril(l_mat.reshape(-1, n, n))
+    _tri_inv_(out)
+    _lauum_(out)
+    return out.reshape(l_mat.shape)
 
 
 # Incremental Cholesky:
