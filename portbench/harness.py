@@ -7,7 +7,8 @@ An entry's ``Entry(config, traffic, inputs, device)`` has ``warm_up()``,
 ``window(seconds) -> batches``, ``release()``, ``work(batch)`` (the
 batch's work, ``yardstick.work``), ``judge(batches) -> numbers``
 (``reference.judge.numbers``) and ``control_batches(count)`` (the
-reference, one precision below, in the program's place). A batch is a
+reference, one precision below, in the program's place); on more than one
+chip its ``window`` ends on ``window_over``. A batch is a
 dict with ``segment``, ``it``, ``n`` (the history size), ``fit``, ``t``
 and ``latency_s`` (host clock, from the window's start), ``points`` (the
 answer, in the box) and ``values`` (the sampler's values)."""
@@ -26,6 +27,25 @@ Tensor = torch.Tensor
 
 class Stop(Exception):
     """Ends the window at an iteration boundary."""
+
+
+def window_over(elapsed_s: float, seconds: float) -> bool:
+    """Whether the window ends at this batch boundary, ``elapsed_s`` after
+    its start. On one chip it is the clock test. On a group of ranks (see
+    ``ranks``) rank 0's clock decides, and one broadcast of one flag hands
+    its decision to every rank, so that all end the window after the same
+    batch; an entry that runs on more than one chip calls it at each batch
+    boundary, on every rank."""
+    import torch.distributed as dist
+
+    over = elapsed_s >= seconds
+    if not (dist.is_available() and dist.is_initialized()):
+        return over
+    nccl = dist.get_backend() == "nccl"
+    flag = torch.tensor([over], dtype=torch.uint8,
+                        device=torch.device("cuda", torch.cuda.current_device()) if nccl else "cpu")
+    dist.broadcast(flag, src=0)
+    return bool(flag.item())
 
 
 class ValueTap:

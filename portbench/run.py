@@ -12,7 +12,12 @@ per-layer ones, read from the profiler's trace of the window), ``device``,
 with ``--trace 1`` a ``breakdown``, and last ``checks``: each number
 compared with its limit, which are also the last lines of standard error.
 Exits 2 without enough CUDA devices, and 3 when JAX or the JAX package
-was loaded before set-up, by the window or before the result is printed."""
+was loaded before set-up, by the window or before the result is printed.
+
+A cell on more than one chip runs as one process per card (``ranks``):
+this process is rank 0, its window is the result's, ``peak_mem_gib`` and
+``memory_peak_bytes`` are the fullest rank's, ``device.count`` the number
+of ranks and ``device.ranks`` each rank's peak, batches and busy share."""
 
 import time
 
@@ -23,7 +28,7 @@ import json  # noqa: E402
 import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
-from typing import Dict, List, Optional, Tuple  # noqa: E402
+from typing import Dict, List, NamedTuple, Optional, Tuple  # noqa: E402
 
 from portbench import guard, manifest  # noqa: E402
 
@@ -79,23 +84,35 @@ def judged(numbers: Dict[str, object], limits: Dict[str, float]) -> Tuple[bool, 
     return ok, checks
 
 
-def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
-             t0: Optional[float] = None, entry_hook=None) -> dict:
-    """One run of ``cell``; returns the result object (see the module
-    docstring). ``entry_hook(entry)`` may replace parts of the entry
-    before set-up ends (the tests plant faults with it)."""
+def memory_reading(cuda: bool) -> int:
+    """The card's peak of allocated bytes since the last reset (0 on the
+    CPU)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+
+    return torch.cuda.max_memory_allocated() if cuda else 0
+
+
+class Window(NamedTuple):
+    batches: List[dict]
+    setup_s: float  # this process's clock from ``t0`` to the window
+    setup_peak: int
+    window_peak: int
+    prof: object  # the stopped profiler, or None untraced
+
+
+def set_up(cell: manifest.Cell, seed: int, device, entry_hook=None):
+    """The cell's entry on ``device``, built from the seed and warmed up:
+    the kernels' build, the inputs, the program's cached state, the warm
+    batches. ``entry_hook(entry)`` may replace parts of the entry before
+    the warm-up (the tests plant faults with it)."""
+    import torch
 
     from portbench import inputs as I
-    from portbench import trace as T
 
-    t0 = time.perf_counter() if t0 is None else t0
-    cuda = torch.device(device).type == "cuda"
     tf32 = bool(cell.config.get("tf32", False))
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
-    if cuda:
+    if torch.device(device).type == "cuda":
         from turbojax_torch import cuda_kernels as CK
 
         CK.build()
@@ -104,8 +121,19 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, devic
     if entry_hook is not None:
         entry_hook(entry)
     entry.warm_up()
+    return entry
+
+
+def measure(entry, seconds: float, traced: bool, cuda: bool, t0: float) -> Window:
+    """Set-up ends here: the set-up clock and peak are read, then the
+    window runs, under the profiler when ``traced``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from portbench import trace as T
+
     setup_s = time.perf_counter() - t0
-    setup_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    setup_peak = memory_reading(cuda)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if traced else None
@@ -115,30 +143,66 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, devic
         batches = entry.window(seconds)
     if prof is not None:
         prof.stop()
-    window_s = batches[-1]["t"] if batches else float("nan")
-    window_peak = torch.cuda.max_memory_allocated() if cuda else 0
-    guard.check("after the window")
+    return Window(batches, setup_s, setup_peak, memory_reading(cuda), prof)
 
+
+def reading(rank: int, w: Window, trace) -> dict:
+    """What one rank's window gives the result: its peaks, its batches and,
+    traced, its device's busy and window seconds."""
+    from portbench import trace as T
+
+    out = {"rank": rank, "setup_peak": int(w.setup_peak), "window_peak": int(w.window_peak),
+           "batches": len(w.batches)}
+    if trace is not None:
+        out.update(busy_s=T.busy_s(trace), window_s=T.window_s(trace))
+    return out
+
+
+def report(cell: manifest.Cell, entry, w: Window, trace, device, readings: List[dict]) -> dict:
+    """The result before the judgement, from rank 0's window and trace and
+    every rank's reading (one on one chip): ``peak_mem_gib`` and
+    ``memory_peak_bytes`` are the fullest rank's, ``busy_s`` and
+    ``window_s`` the mean over the ranks; ``device.ranks`` lists each rank
+    where there are more than one."""
+    import torch
+
+    from portbench import trace as T
+
+    cuda = torch.device(device).type == "cuda"
+    batches = w.batches
     result = {"correct": False, "attempted": len(batches), "failed": 0}
-    breakdown = None
-    if not traced:
-        result["metrics"] = end_to_end(cell, batches, window_s, setup_s, window_peak)
+    if trace is None:
+        window_s = batches[-1]["t"] if batches else float("nan")
+        result["metrics"] = end_to_end(cell, batches, window_s, w.setup_s, max(r["window_peak"] for r in readings))
     else:
-        trace = T.collect(prof)
         run = T.Run(cell.config, cell.traffic, batches, [entry.work(b) for b in batches], trace)
         result["metrics"] = per_layer(cell, run)
         breakdown = T.breakdown(trace)
-        busy, win = T.busy_s(trace), T.window_s(trace)
-        del prof, trace, run
     result["device"] = {
         "platform": "gpu" if cuda else "cpu",
         "kind": torch.cuda.get_device_name(torch.device(device)) if cuda else "cpu",
-        "count": 1,
-        "memory_peak_bytes": int(max(setup_peak, window_peak)),
+        "count": len(readings),
+        "memory_peak_bytes": max(max(r["setup_peak"], r["window_peak"]) for r in readings),
     }
-    if traced:
-        result["device"].update(busy_s=busy, window_s=win)
+    if trace is not None:
+        result["device"].update(busy_s=sum(r["busy_s"] for r in readings) / len(readings),
+                                window_s=sum(r["window_s"] for r in readings) / len(readings))
         result["breakdown"] = breakdown
+    if len(readings) > 1:
+        result["device"]["ranks"] = [
+            dict({"rank": r["rank"], "memory_peak_bytes": max(r["setup_peak"], r["window_peak"]),
+                  "window_peak_bytes": r["window_peak"], "batches": r["batches"]},
+                 **({"busy_share": r["busy_s"] / r["window_s"]} if "busy_s" in r else {}))
+            for r in readings]
+    return result
+
+
+def judge(cell: manifest.Cell, entry, batches: List[dict], result: dict, cuda: bool,
+          more_checks: Optional[Dict[str, dict]] = None) -> dict:
+    """The reference's judgement of the window's answers, once the
+    program's state is freed; ``more_checks`` (each a value at most its
+    limit) join the comparison."""
+    import torch
 
     entry.release()
     if cuda:
@@ -149,22 +213,61 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, devic
           f"checked {numbers['checked']} of {len(batches)} in {time.perf_counter() - t_judge:.1f} s",
           file=sys.stderr, flush=True)
     correct, checks = judged(numbers, cell.limits)
+    for name, c in (more_checks or {}).items():
+        checks[name] = c
+        correct = correct and c["value"] <= c["limit"]
     result["correct"] = correct
     result["failed"] = sum(1 for b in numbers["per_batch"] if any(not b[k] <= lim for k, lim in cell.limits.items()))
     result["checks"] = checks
     return result
 
 
-def main(argv: Optional[List[str]] = None, device: str = "cuda", root: str = manifest.ROOT) -> int:
-    """The command. ``device`` and ``root`` let the tests drive a whole run
-    on the CPU over a directory of tiny cells; the command line always runs
-    on the card."""
-    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+def run_cell(cell: manifest.Cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
+             t0: Optional[float] = None, entry_hook=None, ranks=None) -> dict:
+    """One run of ``cell``; returns the result object (see the module
+    docstring). ``entry_hook`` as in ``set_up``. With ``ranks`` (a
+    ``ranks.Ranks``: a cell on more than one chip) this process is rank 0:
+    it joins the group before set-up, meets the other ranks before the
+    window, and its result takes in every rank's reading and checks."""
+    import torch
+
+    from portbench import trace as T
+
+    t0 = time.perf_counter() if t0 is None else t0
+    dev = device if ranks is None else ranks.device
+    cuda = torch.device(dev).type == "cuda"
+    if ranks is not None:
+        ranks.join()
+    entry = set_up(cell, seed, dev, entry_hook)
+    if ranks is not None:
+        ranks.window_starts(seconds)
+    w = measure(entry, seconds, traced, cuda, t0)
+    guard.check("after the window")
+    trace = T.collect(w.prof) if traced else None
+    readings = [reading(0, w, trace)]
+    if ranks is not None:
+        readings = ranks.readings(readings[0])
+    result = report(cell, entry, w, trace, dev, readings)
+    batches = w.batches
+    del w, trace  # the profiler's record, before the reference runs
+    return judge(cell, entry, batches, result, cuda, None if ranks is None else ranks.checks(readings))
+
+
+def arguments(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """A run's arguments, which every rank of a run is given alike."""
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None, device: str = "cuda", root: str = manifest.ROOT) -> int:
+    """The command. ``device`` and ``root`` let the tests drive a whole run
+    on the CPU over a directory of tiny cells; the command line always runs
+    on the card."""
+    args = arguments(argparse.ArgumentParser(description=__doc__,
+                                             formatter_class=argparse.RawDescriptionHelpFormatter)).parse_args(argv)
     guard.check("before set-up")
     cell = manifest.load_cell(args.workload, root)
     import torch
@@ -175,7 +278,12 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda", root: str = man
         return 2
     print(f"portbench: {args.workload} seed {args.seed} on {card_line() if device == 'cuda' else device}",
           file=sys.stderr, flush=True)
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, t0=_T0)
+    if cell.chips > 1:
+        from portbench import ranks
+
+        result = ranks.lead(cell, args, device, root, _T0)
+    else:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace), device, t0=_T0)
     guard.check("before the result")
     for name, c in result["checks"].items():
         print(f"portbench check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
