@@ -15,7 +15,9 @@ sharded candidate axis (``cand_shard_min=0``) visits the points of the
 unsharded loop. ``optimize(mesh=)``
 runs plain BO (EI and pathwise TS, the distributed route on D = 2) and
 TuRBO-m with its regions sharded; a checkpointed run (rank 0 writes) resumes
-to the same result. Replicated results must be equal on every rank.
+to the same result. With n_init 7 and q = 3 (the padded layout) the loop,
+forced distributed and fitted by Adam, visits the dense route's points.
+Replicated results must be equal on every rank.
 """
 
 import functools
@@ -43,6 +45,8 @@ DIM, BO_SEED = 3, 24
 BO_KW = dict(n_init=8, max_evals=12, batch_size=2, acq="ei", n_candidates=48)
 BO_GP = dict(kernel="matern52", fit_optimizer="adam", fit_maxiter=3, fit_restarts=1)
 # name: (the BOConfig's other settings, budget_bytes); JAX runs the first
+# q = 3 from 7 points, fitted by Adam at iterations 0 and 2: the padded layout's fit
+BO_ODD = dict(n_init=7, max_evals=16, batch_size=3, acq="ts", n_candidates=48, fit_every=2)
 BO_CASES = {"bo_distributed": ({"fit_every": 2}, 1),
             "bo_cand_sharded": ({"fit_every": 0, "cand_shard_min": 0}, 1 << 40),
             "bo_dense": ({"fit_every": 0}, 1 << 40)}
@@ -69,9 +73,13 @@ def _bo_draws():
 def _jobs(tmp_dir):
     x0, sobol = _bo_draws()
     common = dict(config=GPConfig(**BO_GP), x_init=x0, sobol=sobol)
+    rng = np.random.RandomState(5)
+    odd = dict(config=GPConfig(**BO_GP), x_init=rng.rand(BO_ODD["n_init"], DIM),
+               sobol=[rng.rand(BO_ODD["n_candidates"], DIM) for _ in range(3)])
     return [*((name, "bo_loop", dict(bo=BOConfig(**BO_KW, **extra), budget_bytes=budget, **common))
               for name, (extra, budget) in BO_CASES.items()),
-            ("optimize", "optimize_runs", dict(tmp_dir=tmp_dir))]
+            ("optimize", "optimize_runs", dict(tmp_dir=tmp_dir)),
+            ("bo_odd_fit", "bo_loop", dict(bo=BOConfig(**BO_ODD), budget_bytes=1, **odd))]
 
 
 def _jax_refs(world):
@@ -150,3 +158,15 @@ def test_optimize_on_a_mesh_resumes_its_checkpoint(results, world):
     got, _ = _case(results, world, "optimize")
     np.testing.assert_array_equal(got["resumed_trace"], got["ckpt_trace"])
     np.testing.assert_array_equal(got["resumed_y_hist"], got["ckpt_y_hist"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_padded_fit_visits_the_dense_points(results, world):
+    """n_init 7 and q = 3, forced onto the row-sharded GP on D = 2: the
+    Adam fits of the padded MLL at iterations 0 and 2 and the pathwise
+    draws visit the points of the dense route on one device."""
+    got, _ = _case(results, world, "bo_odd_fit")
+    dense, _ = _case(results, 1, "bo_odd_fit")
+    assert got["distributed"].tolist() == [world > 1] * 3 and not dense["distributed"].any()
+    np.testing.assert_allclose(got["x_hist"], dense["x_hist"], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got["y_hist"], dense["y_hist"], rtol=1e-9)

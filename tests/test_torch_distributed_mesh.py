@@ -17,6 +17,16 @@ draws injected at rtol 1e-8. Duplicated rows at extreme hypers in float32
 (a NaN warm start among them) give finite hypers; a mesh of one device
 takes the dense route whatever the budget, a larger one the distributed
 route above it. Replicated results must be equal on every rank.
+
+The padded layout (any N): at N = 30, divisible by neither D nor the
+panel, the GP level (factor, α, posterior, MLL and its gradient in raw, x
+and y_std, pathwise draws with injected draws) against the plain float64
+GP of ``portbench/reference/gp64.py`` at the same tolerances, the padded
+block of the factor the identity's and α zero there; at N = 32 with
+panels of 12 (padded on every D) the unpadded route's values at panels
+of 4; ``run_bo_distributed`` with q = 3, forced distributed, visits the
+points of the dense route on one device. A factorization records its
+spans (``dlinalg.factor``, its ladder, rungs and reads) nested.
 """
 
 import functools
@@ -77,6 +87,11 @@ X_DUP = np.repeat(RNG.rand(8, DIM), 4, axis=0)
 Y_DUP = np.sin(3 * X_DUP[:, 0])
 
 
+RAW0 = RAW._replace(raw_mean=np.asarray(0.0))  # the reference's mean is 0
+N_ODD, PANEL_PAD = 30, 12
+BO_ODD = dict(n_init=7, max_evals=16, batch_size=3, n_candidates=48, fit_every=0)
+
+
 def _path_draws():
     kf, kw, ke = jax.random.split(jax.random.key(PATH_SEED), 3)
     omega, b = JA.rff_frequencies(kf, DIM, M_FEAT, "matern52", jnp.float64)
@@ -101,6 +116,34 @@ def _jobs():
         ("pathwise", "pathwise", dict(x=X, y=Y, raw=RAW, config=pcfg, panel=PANEL, xs=XS, n_paths=N_PATHS,
                                       **_path_draws())),
         ("route", "route", dict(x=X, y=Y, config=GPConfig(**FIT_KW), panel=PANEL)),
+        *_padded_jobs(),
+    ]
+
+
+def _standardized(y):
+    return (y - y.mean()) / y.std()
+
+
+def _padded_jobs():
+    """The padded layout's cases: the GP level at N = 30 and at N = 32 with
+    panels of 12, the BO loop with q = 3, a factorization's spans."""
+    draws = _path_draws()
+    odd = dict(draws, eps=draws["eps"][:, :N_ODD])
+    x_odd, y_odd = X[:N_ODD], Y[:N_ODD]
+    rng = np.random.RandomState(11)
+    bo_inputs = dict(x_init=rng.rand(BO_ODD["n_init"], DIM),
+                     sobol=[rng.rand(BO_ODD["n_candidates"], DIM) for _ in range(3)])
+    from turbojax_torch.bo import BOConfig
+
+    return [
+        ("padded_odd", "padded", dict(x=x_odd, y=y_odd, y_std=_standardized(y_odd), raw=RAW0,
+                                      config=GPConfig(kernel="matern52"), panel=PANEL, xs=XS, **odd)),
+        ("padded_even", "padded", dict(x=X, y=Y, y_std=Y_STD, raw=RAW, config=GPConfig(**GP_KW), panel=PANEL_PAD,
+                                       xs=XS, **draws)),
+        *((f"bo_odd_{acq}", "bo_loop", dict(bo=BOConfig(**BO_ODD, acq=acq), config=GPConfig(kernel="matern52"),
+                                            budget_bytes=1, **bo_inputs)) for acq in ("ts", "ei")),
+        ("factor_spans", "factor_spans", dict(x=x_odd, y=y_odd, raw=RAW0, config=GPConfig(kernel="matern52"),
+                                              panel=PANEL)),
     ]
 
 
@@ -217,3 +260,105 @@ def test_routing_by_mesh_size_and_budget(results, world):
     assert np.isfinite(got["mll"])
     for w in (world,):
         assert JDL.should_distribute(N, JPAR.make_mesh(w), budget_bytes=1) == (w > 1)
+
+
+# --------------------------------------------------------------------------
+# The padded layout
+
+
+def _reference_odd():
+    """The plain float64 GP of ``portbench/reference/gp64.py`` on the N = 30
+    case's data and hypers: the factor, α, the posterior, the MLL with its
+    gradient (autograd through the plain dense MLL) and the pathwise
+    values."""
+    from portbench.reference import gp64 as R
+
+    cfg = GPConfig(kernel="matern52")
+    gp = {"kernel": "matern52", "noise_floor": cfg.noise_floor, "jitter": cfg.jitter,
+          "lengthscale_bounds": list(cfg.lengthscale_bounds), "outputscale_bounds": list(cfg.outputscale_bounds),
+          "noise_bounds": list(cfg.noise_bounds), "fit_lr": cfg.fit_lr}
+    t = functools.partial(torch.tensor, dtype=torch.float64)
+    x, y, xs = t(X[:N_ODD]), t(Y[:N_ODD]), t(XS)
+    raw = torch.cat([t(RAW0.raw_lengthscale), t([float(RAW0.raw_outputscale), float(RAW0.raw_noise), 0.0])])
+    post = R.posterior(x, y, raw, gp)
+    k_s = R.kernel(xs, x, post.h, gp)
+    v = torch.linalg.solve_triangular(post.l_mat, k_s.T, upper=False)
+    draws = _path_draws()
+    paths = R.pathwise_values(post, xs, *(t(draws[k]) for k in ("omega", "b", "w")), t(draws["eps"][:, :N_ODD]))
+    x_g, y_g, raw_g = x.clone().requires_grad_(True), post.y_std.clone().requires_grad_(True), raw.requires_grad_(True)
+    h = R.constrain(raw_g, gp)
+    k = R.kernel(x_g, None, h, gp) + R.train_shift(h, gp["jitter"], gp["jitter"]) * torch.eye(N_ODD, dtype=x.dtype)
+    l_mat = torch.linalg.cholesky(k)
+    alpha = torch.cholesky_solve(y_g[:, None], l_mat)[:, 0]
+    value = -0.5 * ((y_g * alpha).sum() + 2.0 * torch.log(l_mat.diagonal()).sum() + N_ODD * np.log(2 * np.pi))
+    g_raw, g_x, g_y = torch.autograd.grad(value, [raw_g, x_g, y_g])
+    n = lambda a: a.detach().numpy()  # noqa: E731
+    return {"chol": n(post.l_mat), "alpha": n(post.alpha), "mu": n((k_s @ post.alpha) * post.y_sd + post.y_mean),
+            "var": n((post.h.outputscale - (v * v).sum(dim=0)) * post.y_sd**2), "mll": n(value), "value": n(value),
+            "paths": n(paths), "grad_x": n(g_x), "grad_y_std": n(g_y), "grad_raw_lengthscale": n(g_raw[:DIM]),
+            "grad_raw_outputscale": n(g_raw[DIM]), "grad_raw_noise": n(g_raw[DIM + 1]),
+            "grad_raw_mean": np.asarray(0.0)}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_padded_gp_at_an_odd_n_matches_the_plain_reference(results, world):
+    """N = 30 on D = 1, 2, 4 with panels of 4: padded to 32 rows, the
+    padded block of the factor the identity's and α zero on it; every value
+    the plain reference's."""
+    got, _ = _case(results, world, "padded_odd")
+    want = _reference_odd()
+    n = N_ODD
+    assert int(got["n_pad"]) == 32
+    chol = got["chol"]
+    np.testing.assert_array_equal(chol[n:, :n], 0.0)
+    np.testing.assert_array_equal(chol[n:, n:], np.eye(32 - n))
+    np.testing.assert_array_equal(got["alpha"][n:], 0.0)
+    np.testing.assert_allclose(chol[:n, :n], want["chol"], **TIGHT)
+    np.testing.assert_allclose(got["alpha"][:n], want["alpha"], **TIGHT)
+    for name in ("mu", "var", "mll", "value"):
+        np.testing.assert_allclose(got[name], want[name], **TIGHT, err_msg=name)
+    for name in ["grad_x", "grad_y_std"] + [f"grad_{f}" for f in JG.GPParams._fields]:
+        np.testing.assert_allclose(got[name], want[name], **GRAD, err_msg=name)
+    np.testing.assert_allclose(got["paths"], want["paths"], rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_padded_gp_matches_the_unpadded_route(results, world):
+    """N = 32 with panels of 12 (padded to 36, 48, 48 rows on D = 1, 2, 4)
+    gives the values of the route at panels of 4, which pads nothing and is
+    held against JAX above."""
+    got, _ = _case(results, world, "padded_even")
+    assert int(got["n_pad"]) == {1: 36, 2: 48, 4: 48}[world]
+    mll, _ = _case(results, world, "mll")
+    paths, _ = _case(results, world, "pathwise")
+    np.testing.assert_allclose(got["value"], mll["value"], **TIGHT)
+    for name in ["grad_x", "grad_y_std"] + [f"grad_{f}" for f in JG.GPParams._fields]:
+        np.testing.assert_allclose(got[name], mll[name], **GRAD, err_msg=name)
+    for name in ("mu", "var", "mll"):
+        np.testing.assert_allclose(got[name], paths[name], **TIGHT, err_msg=name)
+    np.testing.assert_allclose(got["paths"], paths["paths"], rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("acq", ["ts", "ei"])
+def test_run_bo_distributed_with_q3_visits_the_dense_points(results, world, acq):
+    """n_init 7 and q = 3 at pinned hypers, forced onto the row-sharded GP
+    on D = 2 and 4, visit the points of the dense route on one device (the
+    pathwise draws from the same generator state)."""
+    got, _ = _case(results, world, f"bo_odd_{acq}")
+    dense, _ = _case(results, 1, f"bo_odd_{acq}")
+    assert got["distributed"].tolist() == [world > 1] * 3 and not dense["distributed"].any()
+    np.testing.assert_allclose(got["x_hist"], dense["x_hist"], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got["y_hist"], dense["y_hist"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_a_distributed_factorization_records_its_spans(results, world):
+    """One ``dlinalg.factor`` holding one ladder, one rung and one read of
+    the all-reduced flag here (the first rung succeeds)."""
+    got, _ = _case(results, world, "factor_spans")
+    counts = {k: int(got[k]) for k in ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung",
+                                       "sync.dlinalg.ladder")}
+    assert counts == {"dlinalg.factor": 1, "linalg.cholesky_ladder": 1, "linalg.cholesky_rung": 1,
+                      "sync.dlinalg.ladder": 1}
+    assert got["nested"].all(), got["nested"]

@@ -152,6 +152,55 @@ def route(mesh, x, y, config, panel):
     return {"distributed": np.asarray(kinds), "mll": _np(refac.mll())}
 
 
+def padded(mesh, x, y, y_std, raw, config, panel, xs, omega, b, w, eps):
+    """The GP level at any N (the padded layout): the factor, α, the
+    posterior, the MLL and the distributed MLL's gradient in raw, x and
+    y_std, pathwise draws with injected draws; the factor and α gathered
+    whole, padding included."""
+    from turbojax_torch import acq as A
+    from turbojax_torch import distributed_linalg as DL
+    from turbojax_torch.gp import GPParams
+    from turbojax_torch.parallel import gather_rows
+
+    dgp = DL._assemble_distributed_gp(_t(x), _t(y), _params(raw), config, mesh, panel)
+    mu, var = dgp.posterior(_t(xs))
+    draws = A.Draws(omega=_t(omega), b=_t(b), weights=_t(w), eps=_t(eps))
+    paths = DL.distributed_pathwise_paths(dgp, _t(xs), w.shape[0], omega.shape[0], draws=draws)
+    leaves = [a.requires_grad_(True) for a in _params(raw)]
+    xt, yt = _t(x).requires_grad_(True), _t(y_std).requires_grad_(True)
+    val = DL.distributed_mll(GPParams(*leaves), xt, yt, mesh, config, panel)
+    grads = torch.autograd.grad(val, leaves + [xt, yt])
+    out = {"chol": _np(gather_rows(dgp.chol, mesh)), "alpha": _np(gather_rows(dgp.alpha, mesh)[:, 0]),
+           "n_pad": np.asarray(dgp.layout.n_pad), "mu": _np(mu), "var": _np(var), "mll": _np(dgp.mll()),
+           "paths": _np(paths), "value": _np(val), "grad_x": _np(grads[-2]), "grad_y_std": _np(grads[-1])}
+    out.update({f"grad_{name}": _np(g) for name, g in zip(GPParams._fields, grads)})
+    return out
+
+
+def factor_spans(mesh, x, y, raw, config, panel):
+    """The spans one ``DistributedGP`` factorization records: their counts
+    by name and whether each lies inside the one it belongs to."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from turbojax_torch import distributed_linalg as DL
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        DL._assemble_distributed_gp(_t(x), _t(y), _params(raw), config, mesh, panel)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CPU and e.is_user_annotation]
+
+    def inside(inner, outer):
+        outers = [s for s in spans if s[0] == outer]
+        return all(any(o[1] <= s[1] and s[2] <= o[2] for o in outers) for s in spans if s[0] == inner)
+
+    names = ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung", "sync.dlinalg.ladder")
+    out = {name: np.asarray(sum(1 for s in spans if s[0] == name)) for name in names}
+    out["nested"] = np.asarray([inside("linalg.cholesky_ladder", "dlinalg.factor"),
+                                inside("linalg.cholesky_rung", "linalg.cholesky_ladder"),
+                                inside("sync.dlinalg.ladder", "linalg.cholesky_ladder")])
+    return out
+
+
 # --------------------------------------------------------------------------
 # parallel
 
@@ -284,8 +333,8 @@ def optimize_runs(mesh, tmp_dir):
     return out
 
 
-CASES = {f.__name__: f for f in (linalg, kernel_chol, mll, fit, rescue, pathwise, route, acq_topq, thompson,
-                                 sharded_fit, turbom_step, bo_loop, optimize_runs)}
+CASES = {f.__name__: f for f in (linalg, kernel_chol, mll, fit, rescue, pathwise, route, padded, factor_spans,
+                                 acq_topq, thompson, sharded_fit, turbom_step, bo_loop, optimize_runs)}
 
 
 def run_jobs(jobs, mesh):

@@ -137,10 +137,10 @@ def optimize(
     whose surrogate routes between the dense GP and the row-sharded
     ``DistributedGP`` on the per-device memory threshold; ``acq`` ∈ {"ei",
     "lcb", "ts"} ("ts" is the pathwise sampler) and ``n_init`` and
-    ``batch_size`` multiples of the mesh size. With ``method="turbom"`` the
-    m trust regions are sharded across the mesh
-    (``parallel.run_turbom_sharded``); m must be a multiple of the mesh
-    size, and checkpointing is refused. ``method="turbo1"`` has no axis to
+    ``batch_size`` of any size (the row-sharded history is padded and
+    masked). With ``method="turbom"`` the m trust regions are sharded
+    across the mesh (``parallel.run_turbom_sharded``); m must be a multiple
+    of the mesh size, and checkpointing is refused. ``method="turbo1"`` has no axis to
     shard and refuses a mesh. The run is on ``mesh.device``; ``device`` or
     ``generator`` must agree with it. Every rank gets the whole result."""
     if method not in ("bo", "turbo1", "turbom"):

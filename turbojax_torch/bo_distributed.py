@@ -76,13 +76,6 @@ class IterationDraws(NamedTuple):
     restart_uniforms: Optional[Tensor] = None  # the fit's (gp.fit_gp)
 
 
-def _auto_panel(rows: int, cap: int = 128) -> int:
-    p = min(rows, cap)
-    while rows % p:
-        p -= 1
-    return p
-
-
 def run_bo_distributed(
     fn: Callable[[Tensor], Tensor],
     lb: Sequence[float],
@@ -118,10 +111,11 @@ def run_bo_distributed(
     Runs on ``generator.device``, or on ``device`` with a generator seeded
     with 0; the default device is the GPU (with a mesh, ``mesh.device``),
     and the CPU runs only when asked for. With a mesh, ``n_init`` and
-    ``batch_size`` must be multiples of its size (the distributed history
-    is row-sharded without masking). ``x_init`` ((n_init, d), unit cube)
-    replaces the initial Latin hypercube, and ``draws(it)`` gives iteration
-    ``it``'s ``IterationDraws``. ``checkpoint_path`` with
+    ``batch_size`` may be any sizes: the distributed history is padded to
+    a multiple of the mesh size times the panel of 128, and masked
+    (``distributed_linalg``'s padded layout). ``x_init`` ((n_init, d), unit
+    cube) replaces the initial Latin hypercube, and ``draws(it)`` gives
+    iteration ``it``'s ``IterationDraws``. ``checkpoint_path`` with
     ``checkpoint_every=k`` saves the history, the pinned hypers and the
     generator's state every k iterations (and after the last; with a mesh,
     rank 0 writes); ``resume=True`` restores them, the leaves at the shapes
@@ -140,11 +134,6 @@ def run_bo_distributed(
             "ts_sampler='pathwise' (or leave the default: 'ts' always routes to the pathwise sampler here)"
         )
     n_dev = mesh.size if mesh is not None else 1
-    if bo.n_init % n_dev or bo.batch_size % n_dev:
-        raise ValueError(
-            f"n_init ({bo.n_init}) and batch_size ({bo.batch_size}) must be multiples of the mesh size ({n_dev}): "
-            "the distributed history is row-sharded without masking"
-        )
     if mesh is not None:
         device = PAR.mesh_device(mesh, device, generator)
     if generator is None:
@@ -195,8 +184,7 @@ def run_bo_distributed(
                     d_it = draws(it)
             else:
                 d_it = IterationDraws()
-            panel = _auto_panel(max(x_hist.shape[0] // n_dev, 1))
-            route = dict(mesh=mesh, panel=panel, budget_bytes=budget_bytes)
+            route = dict(mesh=mesh, panel=128, budget_bytes=budget_bytes)
             if bo.fit_every == 0:
                 # 0 = never fit: pin the given (or default) hypers and only refresh
                 # the factorization as the history grows. Routing on `g is None`

@@ -5,9 +5,17 @@ pathwise draws, and the auto-routing between it and the dense GP (port of
 
 Layout (``parallel``'s contract): K (N, N) is sharded by row blocks, rank r
 owning rows [r·N/D, (r+1)·N/D); a function takes and returns each sharded
-matrix as the rank's block and each replicated value whole. The
+matrix as the rank's block and each replicated value whole. The sharded
+primitives (``distributed_cholesky``, the solves, ``distributed_gp_posterior``)
+take N a multiple of D·P. The GP level (``DistributedGP``, ``distributed_mll``,
+the in-shard builds, ``distributed_pathwise_paths``) takes any N: it pads
+the history to N_pad, the next multiple of D·P (``_layout``), with padded
+rows and columns of K the identity's (off-diagonal 0, diagonal 1, as
+``linalg.mask_kernel_matrix`` pads the dense route), residual 0 and a zero
+cross block, so that they add nothing to the solves, 0 to log|K| and the
+MLL counts the active N; the draws keep the active N's shapes. The
 factorization is right-looking over column panels of width P (P divides
-N/D, so a panel's rows live on one rank); per panel:
+N_pad/D, so a panel's rows live on one rank); per panel:
 
 1. all-gather the panel column (N·P values, the only communication: the
    matrix once over the whole run);
@@ -15,7 +23,12 @@ N/D, so a panel's rows live on one rank); per panel:
    cholesky_nan``: a failed block is NaN, as ``jnp.linalg.cholesky``'s is)
    and solves the gathered column below it;
 3. every rank updates its own rows below the panel on the columns right of
-   it (the narrow trailing slice).
+   it up to its last row (the narrow trailing slice; the columns past it
+   are the upper triangle's), in place.
+
+The substitutions go by rank blocks: each rank's diagonal block is one
+triangular solve, and D broadcasts (forward) or all-reduces (backward) of
+an (N/D, m) block carry the coupling, whatever the panel.
 
 No rank holds the dense N × N matrix: the row blocks of k(X, X) and of the
 crosses k(X, X*) are built inside the shard from the replicated X by
@@ -42,7 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -61,18 +74,36 @@ Tensor = torch.Tensor
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
-def _check(n: int, n_dev: int, panel: int) -> int:
-    """N/D, the rows of one rank's block."""
-    if n % n_dev:
-        raise ValueError(f"N ({n}) must be a multiple of the mesh size ({n_dev})")
-    rows = n // n_dev
-    if rows % panel:
-        raise ValueError(f"the panel ({panel}) must divide N/D ({rows})")
-    return rows
+class Layout(NamedTuple):
+    """The padded row layout of an N-row history on a mesh."""
+
+    n: int  # the active rows
+    n_pad: int  # N padded to the next multiple of D·P
+    rows: int  # rows of one rank's block, N_pad/D
+    row0: int  # this rank's first row
 
 
-def _row0(mesh: Mesh, rows: int) -> int:
-    return mesh.rank * rows
+def _layout(n: int, mesh: Mesh, panel: int) -> Layout:
+    unit = mesh.size * panel
+    n_pad = -(-n // unit) * unit
+    rows = n_pad // mesh.size
+    return Layout(n, n_pad, rows, mesh.rank * rows)
+
+
+def _active(lay: Layout) -> int:
+    """This rank's active rows: the first ones of its block."""
+    return min(max(lay.n - lay.row0, 0), lay.rows)
+
+
+def _pad_to(block: Tensor, rows: int) -> Tensor:
+    short = rows - block.shape[0]
+    return block if short == 0 else torch.cat([block, block.new_zeros((short, *block.shape[1:]))])
+
+
+def _pad_rows(v: Tensor, lay: Layout) -> Tensor:
+    """This rank's row block of the replicated (N, ...) ``v``, zero on the
+    padded rows."""
+    return _pad_to(v[lay.row0:lay.row0 + lay.rows], lay.rows)
 
 
 def _span(a: int, b: int, row0: int, rows: int) -> Tuple[int, int]:
@@ -97,67 +128,58 @@ def _local_chol(a: Tensor, mesh: Mesh, row0: int, rows: int, panel: int, n: int)
         a[lo:hi, c0:t0] = l_kk[row0 + lo - c0:row0 + hi - c0]
         if hi < rows:
             a[hi:, c0:t0] = lcol[row0 + hi - t0:row0 + rows - t0]
-            a[hi:, t0:] -= a[hi:, c0:t0] @ lcol.mT  # the narrow trailing slice of the rows below
+            # the narrow trailing slice of the rows below, on the lower triangle's columns
+            a[hi:, t0:row0 + rows].addmm_(a[hi:, c0:t0], lcol[:row0 + rows - t0].mT, alpha=-1.0)
     return a
 
 
-def _local_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int, panel: int,
-                       n: int) -> Tensor:
-    """x = L⁻¹ b with L and b (N, m) row-sharded: forward substitution, one
-    broadcast of [L_kk | b_k] per panel."""
-    m = b_loc.shape[1]
-    r = b_loc.clone()
-    x = torch.zeros_like(b_loc)
-    for c0 in range(0, n, panel):
-        t0 = c0 + panel
-        lo, hi = _span(c0, t0, row0, rows)
-        owner = c0 // rows  # the panel's rows live on one rank
-        if mesh.rank == owner:
-            blk = torch.cat([l_loc[lo:hi, c0:t0], r[lo:hi]], dim=1)
+def _local_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int) -> Tensor:
+    """x = L⁻¹ b with L and b (N, m) row-sharded: forward substitution by
+    rank blocks. Rank r solves its diagonal block L_rr (one triangular
+    solve), broadcasts its x_r, and the ranks below take L_jr x_r off their
+    right-hand sides: D broadcasts in all, whatever the panel."""
+    x = b_loc.clone()
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            x = torch.linalg.solve_triangular(l_loc[:, row0:row0 + rows], x, upper=False)
+            x_r = broadcast_from(x, mesh, src=r)
         else:
-            blk = torch.empty((panel, panel + m), dtype=b_loc.dtype, device=b_loc.device)
-        blk = broadcast_from(blk, mesh, src=owner)
-        x_k = torch.linalg.solve_triangular(blk[:, :panel], blk[:, panel:], upper=False)
-        if hi > lo:
-            x[lo:hi] = x_k
-        if hi < rows:
-            r[hi:] -= l_loc[hi:, c0:t0] @ x_k
+            x_r = broadcast_from(torch.empty_like(x), mesh, src=r)
+        if mesh.rank > r:
+            x.addmm_(l_loc[:, r * rows:(r + 1) * rows], x_r, alpha=-1.0)
     return x
 
 
-def _local_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int, panel: int,
-                         n: int) -> Tensor:
-    """x = L⁻ᵀ b (backward substitution), same layout. Lᵀ's k-th row panel
-    couples x_k to the x_j below it through L's rows below the panel, which
-    are sharded: each rank's part of the cross term and the owner's
-    [L_kk | b_k] go out in one all-reduce per panel (a masked sum, as the
-    JAX package's ``psum``)."""
-    m = b_loc.shape[1]
-    x = torch.zeros_like(b_loc)
-    for c0 in reversed(range(0, n, panel)):
-        t0 = c0 + panel
-        lo, hi = _span(c0, t0, row0, rows)
-        part = torch.zeros((panel, panel + m), dtype=b_loc.dtype, device=b_loc.device)
-        if hi > lo:
-            part[:, :panel] = l_loc[lo:hi, c0:t0]
-            part[:, panel:] = b_loc[lo:hi]
-        if hi < rows:
-            part[:, panel:] -= l_loc[hi:, c0:t0].mT @ x[hi:]
-        blk = all_sum(part, mesh)
-        x_k = torch.linalg.solve_triangular(blk[:, :panel].mT, blk[:, panel:], upper=True)
-        if hi > lo:
-            x[lo:hi] = x_k
+def _local_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int) -> Tensor:
+    """x = L⁻ᵀ b (backward substitution), same layout, by rank blocks from
+    the last: x_r = L_rr⁻ᵀ(b_r − Σ_{j>r} L_jrᵀ x_j), the ranks below r
+    sending their terms and rank r its b_r in one all-reduce (a masked sum,
+    as the JAX package's ``psum``): D all-reduces in all."""
+    x = b_loc
+    for r in reversed(range(mesh.size)):
+        if mesh.rank == r:
+            part = b_loc
+        elif mesh.rank > r:
+            part = -(l_loc[:, r * rows:(r + 1) * rows].mT @ x)
+        else:
+            part = torch.zeros_like(b_loc)
+        total = all_sum(part, mesh)
+        if mesh.rank == r:
+            x = torch.linalg.solve_triangular(l_loc[:, row0:row0 + rows].mT, total, upper=True)
     return x
 
 
-def _layout(mat_loc: Tensor, mesh: Mesh, panel: int) -> Tuple[int, int, int]:
-    """(n, rows, row0) of a row block (rows, N), checked against the mesh."""
-    n = mat_loc.shape[-1]
-    rows = _check(n, mesh.size, panel)
-    if mat_loc.shape[0] != rows:
-        raise ValueError(f"a row block of an ({n}, {n}) matrix on {mesh.size} ranks has {rows} rows, "
+def _block_layout(mat_loc: Tensor, mesh: Mesh, panel: int) -> Layout:
+    """The layout of a row block (rows, N) of the sharded primitives: N a
+    multiple of D·P, no padding."""
+    lay = _layout(mat_loc.shape[-1], mesh, panel)
+    if lay.n_pad != lay.n:
+        raise ValueError(f"N ({lay.n}) must be a multiple of the mesh size times the panel "
+                         f"({mesh.size} x {panel})")
+    if mat_loc.shape[0] != lay.rows:
+        raise ValueError(f"a row block of an ({lay.n}, {lay.n}) matrix on {mesh.size} ranks has {lay.rows} rows, "
                          f"not {mat_loc.shape[0]}")
-    return n, rows, _row0(mesh, rows)
+    return lay
 
 
 # --------------------------------------------------------------------------
@@ -167,21 +189,21 @@ def _layout(mat_loc: Tensor, mesh: Mesh, panel: int) -> Tuple[int, int, int]:
 
 def distributed_cholesky(k_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
     """The row block of the lower factor of SPD K, from K's row block."""
-    n, rows, row0 = _layout(k_loc, mesh, panel)
-    return _local_chol(k_loc.clone(), mesh, row0, rows, panel, n)
+    lay = _block_layout(k_loc, mesh, panel)
+    return _local_chol(k_loc.clone(), mesh, lay.row0, lay.rows, panel, lay.n)
 
 
 def distributed_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
     """x = L⁻¹ b with L and b (N, m) row-sharded alike."""
-    n, rows, row0 = _layout(l_loc, mesh, panel)
-    return _local_solve_lower(l_loc, b_loc, mesh, row0, rows, panel, n)
+    lay = _block_layout(l_loc, mesh, panel)
+    return _local_solve_lower(l_loc, b_loc, mesh, lay.row0, lay.rows)
 
 
 def distributed_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128,
                               unroll="auto") -> Tensor:
     """x = L⁻ᵀ b (backward substitution), same layout."""
-    n, rows, row0 = _layout(l_loc, mesh, panel)
-    return _local_solve_upper_t(l_loc, b_loc, mesh, row0, rows, panel, n)
+    lay = _block_layout(l_loc, mesh, panel)
+    return _local_solve_upper_t(l_loc, b_loc, mesh, lay.row0, lay.rows)
 
 
 def distributed_cho_solve(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
@@ -212,23 +234,47 @@ def _global_diag(l_loc: Tensor, row0: int) -> Tensor:
 
 def distributed_logdet_from_chol(l_loc: Tensor, mesh: Mesh) -> Tensor:
     """log|K| = 2 Σ log diag(L), the diagonal's row blocks all-reduced."""
-    rows = l_loc.shape[0]
-    return all_sum(2.0 * torch.log(_global_diag(l_loc, _row0(mesh, rows))).sum(), mesh)
+    return all_sum(2.0 * torch.log(_global_diag(l_loc, mesh.rank * l_loc.shape[0])).sum(), mesh)
 
 
 # --------------------------------------------------------------------------
 # In-shard kernel builds: no rank holds the dense N × N matrix
 
 
-def _kernel_rows(params: Dict[str, Tensor], x: Tensor, rows: int, row0: int, kernel: str, bump) -> Tensor:
-    """k(X_rows, X) + bump on the global diagonal, the diagonal's values the
-    exact outputscale + bump. One centre, from the whole X, on every rank.
-    On a mesh of one device the block is the whole matrix, passed as one
-    tensor: the kernel's symmetric schedule."""
-    z = x / params["lengthscale"]
-    z = (z - z.mean(dim=0, keepdim=True)).contiguous()
-    z_rows = z if rows == z.shape[0] else z[row0:row0 + rows]
-    return CK.kernel_matrix(z_rows, z, params["outputscale"], bump, kernel, add_noise=True, diag_offset=row0)
+def _kernel_rows(params: Dict[str, Tensor], x: Tensor, lay: Layout, kernel: str, bump) -> Tensor:
+    """k(X_rows, X) + bump on the global diagonal over the padded layout,
+    the diagonal's values the exact outputscale + bump. A padded row of X
+    is zero before the centring, and the one centre, the mean of the active
+    rows, is the same on every rank. The padded rows and columns are not
+    masked here (``_mask_padding_``). On a mesh of one device the block is
+    the whole matrix, passed as one tensor: the kernel's symmetric
+    schedule."""
+    z = _pad_to(x, lay.n_pad) / params["lengthscale"]
+    z = (z - z[:lay.n].mean(dim=0, keepdim=True)).contiguous()
+    z_rows = z if lay.rows == z.shape[0] else z[lay.row0:lay.row0 + lay.rows]
+    return CK.kernel_matrix(z_rows, z, params["outputscale"], bump, kernel, add_noise=True, diag_offset=lay.row0)
+
+
+def _mask_padding_(k_loc: Tensor, lay: Layout) -> Tensor:
+    """K's row block with its padded rows and columns the identity's
+    (``linalg.mask_kernel_matrix``'s padding), in place."""
+    if lay.n_pad == lay.n:
+        return k_loc
+    a = _active(lay)
+    k_loc[:, lay.n:] = 0.0
+    k_loc[a:] = 0.0
+    r = torch.arange(a, lay.rows, device=k_loc.device)
+    k_loc[r, lay.row0 + r] = 1.0
+    return k_loc
+
+
+def _mask_grad_(gk: Tensor, lay: Layout) -> Tensor:
+    """ḡK zero on the padded rows and columns, in place: they are
+    constants, not the kernel's."""
+    if lay.n_pad != lay.n:
+        gk[:, lay.n:] = 0.0
+        gk[_active(lay):] = 0.0
+    return gk
 
 
 def _bump(params: Dict[str, Tensor], jitter: float) -> Tensor:
@@ -241,28 +287,29 @@ def distributed_kernel_chol(
     params: Dict[str, Tensor], x: Tensor, mesh: Mesh, panel: int = 128, kernel: str = "matern52",
     unroll="auto", jitter: float = 0.0,
 ) -> Tensor:
-    """The row block of the Cholesky factor of k(X, X) + σ²I (+ the
-    relative ``jitter``), built in the shard from the replicated X (N, d):
-    the largest live array is the (N/D, N) row block. ``params`` holds
+    """The row block (N_pad/D, N_pad) of the Cholesky factor of k(X, X) +
+    σ²I (+ the relative ``jitter``) over the padded layout (``_layout``:
+    its padded block the identity), built in the shard from the replicated
+    X (N, d): the largest live array is the row block. ``params`` holds
     "lengthscale", "outputscale" and "noise"."""
-    n = x.shape[0]
-    rows = _check(n, mesh.size, panel)
-    row0 = _row0(mesh, rows)
-    k_loc = _kernel_rows(params, x, rows, row0, kernel, _bump(params, jitter))
-    return _local_chol(k_loc, mesh, row0, rows, panel, n)
+    lay = _layout(x.shape[0], mesh, panel)
+    k_loc = _mask_padding_(_kernel_rows(params, x, lay, kernel, _bump(params, jitter)), lay)
+    return _local_chol(k_loc, mesh, lay.row0, lay.rows, panel, lay.n_pad)
 
 
 def distributed_cross_covariance(params: Dict[str, Tensor], x: Tensor, xs: Tensor, mesh: Mesh,
-                                 kernel: str = "matern52") -> Tensor:
-    """The row block of k(X, X*) (N/D × m), built in the shard; the centre
+                                 kernel: str = "matern52", panel: int = 128) -> Tensor:
+    """The row block of k(X, X*) (N_pad/D × m) over the padded layout
+    (``_layout``; zero on the padded rows), built in the shard; the centre
     is the dense posterior's, from the whole X and X*."""
-    rows = _check(x.shape[0], mesh.size, 1)
-    row0 = _row0(mesh, rows)
+    lay = _layout(x.shape[0], mesh, panel)
     ls = params["lengthscale"]
     zx, zs = x / ls, xs / ls
     c = 0.5 * (zx.mean(dim=0, keepdim=True) + zs.mean(dim=0, keepdim=True))
-    return CK.kernel_matrix((zx[row0:row0 + rows] - c).contiguous(), (zs - c).contiguous(), params["outputscale"],
-                            0.0, kernel, False)
+    out = CK.kernel_matrix(_pad_rows(zx - c, lay).contiguous(), (zs - c).contiguous(), params["outputscale"], 0.0,
+                           kernel, False)
+    out[_active(lay):] = 0.0
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -273,25 +320,24 @@ def _mll_parts(raw: G.GPParams, x: Tensor, y_std: Tensor, mesh: Mesh, config: GP
                panel: int) -> Tuple[Tensor, Tensor, Tensor]:
     """Kernel rows → blocked Cholesky → forward solve (quad = ‖L⁻¹r‖²) →
     logdet. Returns (mll, L's row block, v = L⁻¹r's row block)."""
-    n = x.shape[0]
-    rows = _check(n, mesh.size, panel)
-    row0 = _row0(mesh, rows)
+    lay = _layout(x.shape[0], mesh, panel)
     params = G.constrain_params(raw, config)
-    k_loc = _kernel_rows(params, x, rows, row0, config.kernel, _bump(params, config.jitter))
-    l_loc = _local_chol(k_loc, mesh, row0, rows, panel, n)
-    resid = (y_std[row0:row0 + rows] - params["mean"])[:, None]
-    v_loc = _local_solve_lower(l_loc, resid, mesh, row0, rows, panel, n)
-    quad, logdet = all_sum(torch.stack([(v_loc * v_loc).sum(), 2.0 * torch.log(_global_diag(l_loc, row0)).sum()]),
-                           mesh)
-    return -0.5 * (quad + logdet + n * _LOG_2PI), l_loc, v_loc
+    k_loc = _mask_padding_(_kernel_rows(params, x, lay, config.kernel, _bump(params, config.jitter)), lay)
+    l_loc = _local_chol(k_loc, mesh, lay.row0, lay.rows, panel, lay.n_pad)
+    resid = _pad_rows(y_std - params["mean"], lay)[:, None]
+    v_loc = _local_solve_lower(l_loc, resid, mesh, lay.row0, lay.rows)
+    quad, logdet = all_sum(torch.stack([(v_loc * v_loc).sum(),
+                                        2.0 * torch.log(_global_diag(l_loc, lay.row0)).sum()]), mesh)
+    return -0.5 * (quad + logdet + lay.n * _LOG_2PI), l_loc, v_loc
 
 
 class _DistributedMLL(torch.autograd.Function):
     """Forward: the MLL, saving L and α = K⁻¹r. Backward: the closed form,
     ∂MLL/∂K = ½(ααᵀ − K⁻¹) on the local block (K⁻¹'s rows from
-    substitutions against the identity's rows, made in the shard) pulled
-    back through the in-shard kernel build by ``torch.autograd.grad``, the
-    hypers' and X's gradients all-reduced, and ∂MLL/∂y_std = −α."""
+    substitutions against the identity's rows, made in the shard), zero on
+    the padded rows and columns, pulled back through the in-shard kernel
+    build by ``torch.autograd.grad``, the hypers' and X's gradients
+    all-reduced, and ∂MLL/∂y_std = −α on the active rows."""
 
     @staticmethod
     def forward(ctx, mesh, config, panel, x, y_std, *raw_leaves):
@@ -305,24 +351,22 @@ class _DistributedMLL(torch.autograd.Function):
     def backward(ctx, g):
         mesh, config, panel = ctx.mesh, ctx.config, ctx.panel
         x, l_loc, alpha_loc, *raw_leaves = ctx.saved_tensors
-        n = x.shape[0]
-        rows = l_loc.shape[0]
-        row0 = _row0(mesh, rows)
-        r = torch.arange(rows, device=x.device)
-        eye_loc = torch.zeros((rows, n), dtype=l_loc.dtype, device=l_loc.device)
-        eye_loc[r, row0 + r] = 1.0
+        lay = _layout(x.shape[0], mesh, panel)
+        r = torch.arange(lay.rows, device=x.device)
+        eye_loc = torch.zeros((lay.rows, lay.n_pad), dtype=l_loc.dtype, device=l_loc.device)
+        eye_loc[r, lay.row0 + r] = 1.0
         kinv_loc = distributed_cho_solve(l_loc, eye_loc, mesh, panel)
         del eye_loc
         alpha = gather_rows(alpha_loc, mesh)
         # the in-shard build assigns every entry of K once across the ranks
-        gk = (0.5 * g) * (alpha_loc[:, None] * alpha[None, :] - kinv_loc)
+        gk = _mask_grad_((0.5 * g) * (alpha_loc[:, None] * alpha[None, :] - kinv_loc), lay)
         del kinv_loc
         want_x = ctx.needs_input_grad[3]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in raw_leaves]
             x_in = x.detach().requires_grad_(want_x)
             p = G.constrain_params(G.GPParams(*leaves), config)
-            outs = [_kernel_rows(p, x_in, rows, row0, config.kernel, _bump(p, config.jitter))]
+            outs = [_kernel_rows(p, x_in, lay, config.kernel, _bump(p, config.jitter))]
             grads_out = [gk]
             if p["mean"].requires_grad:
                 outs.append(p["mean"])
@@ -333,7 +377,7 @@ class _DistributedMLL(torch.autograd.Function):
         flat = all_sum(torch.cat([gr.reshape(-1) for gr in grads]), mesh)
         grads = [part.reshape(t.shape) for part, t in zip(flat.split([t.numel() for t in inputs]), inputs)]
         x_bar = grads.pop() if want_x else None
-        y_bar = -g * alpha if ctx.needs_input_grad[4] else None
+        y_bar = -g * alpha[:lay.n] if ctx.needs_input_grad[4] else None
         return (None, None, None, x_bar, y_bar, *grads)
 
 
@@ -344,7 +388,8 @@ def distributed_mll(raw: G.GPParams, x: Tensor, y_std: Tensor, mesh: Mesh, confi
     ``raw``; the value on every rank). Differentiable in ``raw``, ``x`` and
     ``y_std`` by the closed form (``_DistributedMLL``), not by autograd
     through the panel loop, which would keep an (N/D, N) block per panel.
-    Unmasked: at this scale the history is exact-size."""
+    Any N: the padded layout (``_layout``) adds nothing, and n is the
+    active N."""
     return _DistributedMLL.apply(mesh, config, panel, x, y_std, *raw)
 
 
@@ -403,7 +448,8 @@ def fit_distributed_gp(x: Tensor, y: Tensor, mesh: Mesh, config: GPConfig = GPCo
 class DistributedGP:
     """Exact GP whose O(N²) state is row-sharded over a mesh: the twin of
     ``gp.make_gp_state``/``gp_posterior`` when N outgrows a device. x and y
-    are replicated (N % D == 0); the factor and α are row blocks.
+    are replicated, of any N; the factor and α are row blocks of the padded
+    layout (``layout``: N_pad/D rows each, zero α on the padded rows).
 
         dgp = DistributedGP(mesh, kernel="matern52", panel=128)
         dgp.fit(x, y, lengthscale, outputscale, noise)
@@ -424,35 +470,41 @@ class DistributedGP:
         ``distributed_mll``) and the dense lane's escalating-jitter rescue
         (×1, ×1e2, ×1e4); a rung is kept when every rank's block is finite
         (an all-reduced flag: every rank takes the same rung)."""
-        kw = dict(dtype=x.dtype, device=x.device)
-        self.x, self.y = x, y
-        self.params = {"lengthscale": torch.as_tensor(lengthscale, **kw),
-                       "outputscale": torch.as_tensor(outputscale, **kw), "noise": torch.as_tensor(noise, **kw)}
-        self.mean = torch.as_tensor(mean, **kw)
-        for scale in (1.0, 1e2, 1e4):
-            chol = distributed_kernel_chol(self.params, x, self.mesh, self.panel, self.kernel,
-                                           jitter=self.jitter * scale)
-            if all_true(torch.isfinite(chol).all(), self.mesh):
-                break
-        self.chol = chol
-        self.alpha = distributed_cho_solve(chol, (self._rows(y) - self.mean)[:, None], self.mesh, self.panel)
-        return self
+        with span("dlinalg.factor"):
+            kw = dict(dtype=x.dtype, device=x.device)
+            self.x, self.y = x, y
+            self.layout = _layout(x.shape[0], self.mesh, self.panel)
+            self.params = {"lengthscale": torch.as_tensor(lengthscale, **kw),
+                           "outputscale": torch.as_tensor(outputscale, **kw), "noise": torch.as_tensor(noise, **kw)}
+            self.mean = torch.as_tensor(mean, **kw)
+            with span("linalg.cholesky_ladder"):
+                for scale in (1.0, 1e2, 1e4):
+                    with span("linalg.cholesky_rung"):
+                        chol = distributed_kernel_chol(self.params, x, self.mesh, self.panel, self.kernel,
+                                                       jitter=self.jitter * scale)
+                    with span("sync.dlinalg.ladder"):
+                        finite = all_true(torch.isfinite(chol).all(), self.mesh)
+                    if finite:
+                        break
+            self.chol = chol
+            self.alpha = distributed_cho_solve(chol, self._rows(y - self.mean)[:, None], self.mesh, self.panel)
+            return self
 
     def _rows(self, v: Tensor) -> Tensor:
-        rows = v.shape[0] // self.mesh.size
-        return v[self.mesh.rank * rows:(self.mesh.rank + 1) * rows]
+        """This rank's row block of the replicated (N, ...) ``v``, zero on
+        the padded rows."""
+        return _pad_rows(v, self.layout)
 
     def posterior(self, xs: Tensor) -> Tuple[Tensor, Tensor]:
         """(μ, σ²) at ``xs`` in the standardization's units, replicated."""
-        k_cross = distributed_cross_covariance(self.params, self.x, xs, self.mesh, self.kernel)
+        k_cross = distributed_cross_covariance(self.params, self.x, xs, self.mesh, self.kernel, self.panel)
         mu, var = distributed_gp_posterior(self.chol, self.alpha, k_cross, K.kernel_diag(self.params, xs),
                                            self.mesh, self.panel, self.mean)
         return self.y_mean + self.y_sd * mu, var * self.y_sd**2
 
     def mll(self) -> Tensor:
-        n = self.y.shape[0]
-        quad = all_sum((self._rows(self.y) - self.mean) @ self.alpha[:, 0], self.mesh)
-        return -0.5 * (quad + distributed_logdet_from_chol(self.chol, self.mesh) + n * _LOG_2PI)
+        quad = all_sum(self._rows(self.y - self.mean) @ self.alpha[:, 0], self.mesh)
+        return -0.5 * (quad + distributed_logdet_from_chol(self.chol, self.mesh) + self.layout.n * _LOG_2PI)
 
     def pathwise_paths(self, xs: Tensor, n_paths: int, n_features: int = 1024,
                        generator: Optional[torch.Generator] = None, draws: A.Draws = A.Draws()) -> Tensor:
@@ -471,12 +523,15 @@ def distributed_pathwise_paths(dgp: DistributedGP, xs: Tensor, n_paths: int, n_f
     the shard, with one distributed cho_solve against the cached factor;
     per rank O(N·max(M, n_cand)/D + n_cand·M) memory. The draws come in
     ``acq.pathwise_paths``'s order (Ω and b, then w, then ε, all whole on
-    every rank), so with the same generator state the dense and distributed
-    samplers agree to solver precision; ``draws`` replaces them. Returns
-    (n_paths, n_cand) in the model's unstandardized units."""
+    every rank), ε at the active N's shape (q, N), so with the same
+    generator state the dense and distributed samplers agree to solver
+    precision; ``draws`` replaces them. The right-hand sides are zero on
+    the padded rows. Returns (n_paths, n_cand) in the model's
+    unstandardized units."""
     with span("acq.sample"):
-        mesh, x, p = dgp.mesh, dgp.x, dgp.params
+        mesh, x, p, lay = dgp.mesh, dgp.x, dgp.params, dgp.layout
         n, dim = x.shape
+        rows = slice(lay.row0, lay.row0 + lay.rows)  # the rank's active rows of a replicated (N, ...) value
         kw = dict(dtype=xs.dtype, device=xs.device)
         omega, b = draws.omega, draws.b
         if omega is None or b is None:
@@ -485,11 +540,12 @@ def distributed_pathwise_paths(dgp: DistributedGP, xs: Tensor, n_paths: int, n_f
         ls = torch.broadcast_to(p["lengthscale"], (dim,))
         w = A._normals((n_paths, omega.shape[0]), draws.weights, generator, xs)
         eps = torch.sqrt(p["noise"]) * A._normals((n_paths, n), draws.eps, generator, xs)
-        # rhs = r − φ(X)ᵀw − ε on the rank's rows: the (N/D, M) φ block, never a global (N, M)
-        phi_rows = A._rff_phi(dgp._rows(x), omega, b, ls, p["outputscale"])
-        rhs = (dgp._rows(dgp.y) - dgp.mean)[:, None] - phi_rows @ w.mT - dgp._rows(eps.mT)
-        u = distributed_cho_solve(dgp.chol, rhs, mesh, dgp.panel)  # (N/D, n_paths)
-        k_cross = distributed_cross_covariance(p, x, xs, mesh, dgp.kernel)  # (N/D, n_cand)
+        # rhs = r − φ(X)ᵀw − ε on the rank's active rows, then zero on its padded ones:
+        # the (N/D, M) φ block, never a global (N, M)
+        phi_rows = A._rff_phi(x[rows], omega, b, ls, p["outputscale"])
+        rhs = _pad_to((dgp.y[rows] - dgp.mean)[:, None] - phi_rows @ w.mT - eps.mT[rows], lay.rows)
+        u = distributed_cho_solve(dgp.chol, rhs, mesh, dgp.panel)  # (N_pad/D, n_paths)
+        k_cross = distributed_cross_covariance(p, x, xs, mesh, dgp.kernel, dgp.panel)  # (N_pad/D, n_cand)
         update = all_sum(k_cross.mT @ u, mesh)  # (n_cand, n_paths)
         prior_c = w @ A._rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
         return dgp.y_mean + dgp.y_sd * (dgp.mean + prior_c + update.mT)
