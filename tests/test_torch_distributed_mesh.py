@@ -26,7 +26,14 @@ block of the factor the identity's and α zero there; at N = 32 with
 panels of 12 (padded on every D) the unpadded route's values at panels
 of 4; ``run_bo_distributed`` with q = 3, forced distributed, visits the
 points of the dense route on one device. A factorization records its
-spans (``dlinalg.factor``, its ladder, rungs and reads) nested.
+spans (``dlinalg.factor``, its ladder, rungs and reads) nested, and
+``dlinalg.blocked_layout`` once on D > 1.
+
+The GP level deals its rows out in blocks (``distributed_linalg._layout``:
+at N = 30 with panels of 4, four blocks a rank on D = 2 and two on D = 4,
+the padded rows on rank 0; at N = 17 every rank holds padded rows): its
+factor and α, gathered in global order, its posterior, MLL, gradient and
+pathwise values equal those of one block a rank at rtol 1e-12 in float64.
 """
 
 import functools
@@ -88,7 +95,7 @@ Y_DUP = np.sin(3 * X_DUP[:, 0])
 
 
 RAW0 = RAW._replace(raw_mean=np.asarray(0.0))  # the reference's mean is 0
-N_ODD, PANEL_PAD = 30, 12
+N_ODD, PANEL_PAD, N_SPREAD = 30, 12, 17
 BO_ODD = dict(n_init=7, max_evals=16, batch_size=3, n_candidates=48, fit_every=0)
 
 
@@ -138,6 +145,11 @@ def _padded_jobs():
     return [
         ("padded_odd", "padded", dict(x=x_odd, y=y_odd, y_std=_standardized(y_odd), raw=RAW0,
                                       config=GPConfig(kernel="matern52"), panel=PANEL, xs=XS, **odd)),
+        ("balanced_odd", "balanced", dict(x=x_odd, y=y_odd, y_std=_standardized(y_odd), raw=RAW0,
+                                          config=GPConfig(kernel="matern52"), panel=PANEL, xs=XS, **odd)),
+        ("balanced_spread", "balanced", dict(x=X[:N_SPREAD], y=Y[:N_SPREAD], y_std=_standardized(Y[:N_SPREAD]),
+                                             raw=RAW0, config=GPConfig(kernel="matern52"), panel=PANEL, xs=XS,
+                                             **dict(draws, eps=draws["eps"][:, :N_SPREAD]))),
         ("padded_even", "padded", dict(x=X, y=Y, y_std=Y_STD, raw=RAW, config=GPConfig(**GP_KW), panel=PANEL_PAD,
                                        xs=XS, **draws)),
         *((f"bo_odd_{acq}", "bo_loop", dict(bo=BOConfig(**BO_ODD, acq=acq), config=GPConfig(kernel="matern52"),
@@ -355,10 +367,44 @@ def test_run_bo_distributed_with_q3_visits_the_dense_points(results, world, acq)
 @pytest.mark.parametrize("world", WORLDS)
 def test_a_distributed_factorization_records_its_spans(results, world):
     """One ``dlinalg.factor`` holding one ladder, one rung and one read of
-    the all-reduced flag here (the first rung succeeds)."""
+    the all-reduced flag here (the first rung succeeds), and on D > 1 one
+    ``dlinalg.blocked_layout`` (the rows dealt out in blocks), none on
+    D = 1."""
     got, _ = _case(results, world, "factor_spans")
     counts = {k: int(got[k]) for k in ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung",
                                        "sync.dlinalg.ladder")}
     assert counts == {"dlinalg.factor": 1, "linalg.cholesky_ladder": 1, "linalg.cholesky_rung": 1,
                       "sync.dlinalg.ladder": 1}
+    assert int(got["dlinalg.blocked_layout"]) == int(world > 1)
     assert got["nested"].all(), got["nested"]
+
+
+# --------------------------------------------------------------------------
+# The dealt-out layout
+
+# blocks a rank on D = 1, 2, 4 with panels of 4: N = 30 pads to 32 on every D, N = 17 to 20 / 24 / 32
+BLOCKS = {"balanced_odd": {1: 1, 2: 4, 4: 2}, "balanced_spread": {1: 1, 2: 3, 4: 2}}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", sorted(BLOCKS))
+def test_dealt_out_blocks_give_the_values_of_one_block_a_rank(results, world, case):
+    """The GP level's rows dealt out in snake order give, in float64, what
+    one block a rank gives: the factor and α gathered in global order, the
+    posterior, the MLL and its gradient in raw, x and y_std, the pathwise
+    values, to 1e-12 of each array's largest magnitude, the gradient to
+    1e-11 (one block a rank on D = 2 and 4 already differs from D = 1 by
+    round-off of 5e-15 to 2e-13 of it, the gradient up to 1.4e-12: in raw
+    noise, through K⁻¹). The padded rows stay the last global rows: the
+    identity's block of the factor, α zero."""
+    got, _ = _case(results, world, case)
+    assert int(got["blocks"]) == BLOCKS[case][world] and int(got["contiguous_blocks"]) == 1
+    n = N_ODD if case == "balanced_odd" else N_SPREAD
+    n_pad = int(got["n_pad"])
+    np.testing.assert_array_equal(got["chol"][n:, :n], 0.0)
+    np.testing.assert_array_equal(got["chol"][n:, n:], np.eye(n_pad - n))
+    np.testing.assert_array_equal(got["alpha"][n:], 0.0)
+    for name in [k for k in got if not k.startswith("contiguous_") and k != "blocks"]:
+        want = got[f"contiguous_{name}"]
+        tol = 1e-11 if name.startswith("grad_") else 1e-12
+        np.testing.assert_allclose(got[name], want, rtol=tol, atol=tol * np.abs(want).max(), err_msg=name)

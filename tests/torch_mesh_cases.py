@@ -156,11 +156,10 @@ def padded(mesh, x, y, y_std, raw, config, panel, xs, omega, b, w, eps):
     """The GP level at any N (the padded layout): the factor, α, the
     posterior, the MLL and the distributed MLL's gradient in raw, x and
     y_std, pathwise draws with injected draws; the factor and α gathered
-    whole, padding included."""
+    whole in global row order, padding included."""
     from turbojax_torch import acq as A
     from turbojax_torch import distributed_linalg as DL
     from turbojax_torch.gp import GPParams
-    from turbojax_torch.parallel import gather_rows
 
     dgp = DL._assemble_distributed_gp(_t(x), _t(y), _params(raw), config, mesh, panel)
     mu, var = dgp.posterior(_t(xs))
@@ -170,10 +169,25 @@ def padded(mesh, x, y, y_std, raw, config, panel, xs, omega, b, w, eps):
     xt, yt = _t(x).requires_grad_(True), _t(y_std).requires_grad_(True)
     val = DL.distributed_mll(GPParams(*leaves), xt, yt, mesh, config, panel)
     grads = torch.autograd.grad(val, leaves + [xt, yt])
-    out = {"chol": _np(gather_rows(dgp.chol, mesh)), "alpha": _np(gather_rows(dgp.alpha, mesh)[:, 0]),
-           "n_pad": np.asarray(dgp.layout.n_pad), "mu": _np(mu), "var": _np(var), "mll": _np(dgp.mll()),
+    out = {"chol": _np(dgp.layout.gather(dgp.chol, mesh)), "alpha": _np(dgp.layout.gather(dgp.alpha, mesh)[:, 0]),
+           "n_pad": np.asarray(dgp.layout.n_pad), "blocks": np.asarray(len(dgp.layout.mine)), "mu": _np(mu), "var": _np(var), "mll": _np(dgp.mll()),
            "paths": _np(paths), "value": _np(val), "grad_x": _np(grads[-2]), "grad_y_std": _np(grads[-1])}
     out.update({f"grad_{name}": _np(g) for name, g in zip(GPParams._fields, grads)})
+    return out
+
+
+def balanced(mesh, **kwargs):
+    """``padded`` on the GP level's layout (its blocks dealt out), then on
+    one block a rank (``_BLOCKS_PER_RANK`` set to 1 for the call), with
+    the second's outputs under "contiguous_<name>"."""
+    from turbojax_torch import distributed_linalg as DL
+
+    out = padded(mesh, **kwargs)
+    saved, DL._BLOCKS_PER_RANK = DL._BLOCKS_PER_RANK, 1
+    try:
+        out.update({f"contiguous_{k}": v for k, v in padded(mesh, **kwargs).items()})
+    finally:
+        DL._BLOCKS_PER_RANK = saved
     return out
 
 
@@ -193,9 +207,11 @@ def factor_spans(mesh, x, y, raw, config, panel):
         outers = [s for s in spans if s[0] == outer]
         return all(any(o[1] <= s[1] and s[2] <= o[2] for o in outers) for s in spans if s[0] == inner)
 
-    names = ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung", "sync.dlinalg.ladder")
+    names = ("dlinalg.factor", "dlinalg.blocked_layout", "linalg.cholesky_ladder", "linalg.cholesky_rung",
+             "sync.dlinalg.ladder")
     out = {name: np.asarray(sum(1 for s in spans if s[0] == name)) for name in names}
     out["nested"] = np.asarray([inside("linalg.cholesky_ladder", "dlinalg.factor"),
+                                inside("dlinalg.blocked_layout", "dlinalg.factor"),
                                 inside("linalg.cholesky_rung", "linalg.cholesky_ladder"),
                                 inside("sync.dlinalg.ladder", "linalg.cholesky_ladder")])
     return out
@@ -333,8 +349,8 @@ def optimize_runs(mesh, tmp_dir):
     return out
 
 
-CASES = {f.__name__: f for f in (linalg, kernel_chol, mll, fit, rescue, pathwise, route, padded, factor_spans,
-                                 acq_topq, thompson, sharded_fit, turbom_step, bo_loop, optimize_runs)}
+CASES = {f.__name__: f for f in (linalg, kernel_chol, mll, fit, rescue, pathwise, route, padded, balanced,
+                                 factor_spans, acq_topq, thompson, sharded_fit, turbom_step, bo_loop, optimize_runs)}
 
 
 def run_jobs(jobs, mesh):

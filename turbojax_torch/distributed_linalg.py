@@ -3,39 +3,55 @@ solves, the MLL with its closed-form gradient, the fit, the posterior and
 pathwise draws, and the auto-routing between it and the dense GP (port of
 ``turbojax.distributed_linalg``).
 
-Layout (``parallel``'s contract): K (N, N) is sharded by row blocks, rank r
-owning rows [r·N/D, (r+1)·N/D); a function takes and returns each sharded
-matrix as the rank's block and each replicated value whole. The sharded
-primitives (``distributed_cholesky``, the solves, ``distributed_gp_posterior``)
-take N a multiple of D·P. The GP level (``DistributedGP``, ``distributed_mll``,
-the in-shard builds, ``distributed_pathwise_paths``) takes any N: it pads
-the history to N_pad, the next multiple of D·P (``_layout``), with padded
-rows and columns of K the identity's (off-diagonal 0, diagonal 1, as
-``linalg.mask_kernel_matrix`` pads the dense route), residual 0 and a zero
-cross block, so that they add nothing to the solves, 0 to log|K| and the
-MLL counts the active N; the draws keep the active N's shapes. The
-factorization is right-looking over column panels of width P (P divides
-N_pad/D, so a panel's rows live on one rank); per panel:
+Layout: a sharded primitive (``distributed_cholesky``, the solves,
+``distributed_gp_posterior``, ``distributed_kernel_chol``,
+``distributed_cross_covariance``) keeps ``parallel``'s contract: K (N, N)
+is sharded by row blocks, rank r owning rows [r·N/D, (r+1)·N/D); a
+function takes and returns each sharded matrix as the rank's block and each
+replicated value whole. The primitives on the given factor take N a
+multiple of D·P. The GP level (``DistributedGP``, ``distributed_mll``,
+``distributed_pathwise_paths``) takes any N: it pads the history to N_pad,
+the next multiple of D·P (``_layout``), with padded rows and columns of K
+the identity's (off-diagonal 0, diagonal 1, as ``linalg.mask_kernel_matrix``
+pads the dense route), residual 0 and a zero cross block, so that they add
+nothing to the solves, 0 to log|K| and the MLL counts the active N; the
+draws keep the active N's shapes. Its rows are dealt out balanced: the
+N_pad/P panels form D·s row blocks of whole panels (s = ``_BLOCKS_PER_RANK``
+on D > 1, or the panels a rank holds if fewer; s = 1 on one device), given
+out in snake order (ranks 0…D−1, then D−1…0, ...), each rank storing its s
+blocks one after another in global order: N_pad/D rows a rank as before,
+the padded rows still the last global rows (the end of each rank's
+storage). With one block a rank (the primitives' layout) the last rank's
+rows lie below every panel and it does ~2.9× its N³/(3D) share of the
+trailing updates at D = 4 while the others wait; dealt out at s = 8 the
+slowest rank's share per panel sums to ~1.06×. ``Layout.gather`` makes a
+GP-level block whole in global row order.
+
+The factorization is right-looking over column panels of width P (a panel
+lies inside one block, so its rows live on one rank); per panel:
 
 1. all-gather the panel column (N·P values, the only communication: the
    matrix once over the whole run);
 2. every rank factors the P × P diagonal block itself (``linalg.
    cholesky_nan``: a failed block is NaN, as ``jnp.linalg.cholesky``'s is)
    and solves the gathered column below it;
-3. every rank updates its own rows below the panel on the columns right of
-   it up to its last row (the narrow trailing slice; the columns past it
-   are the upper triangle's), in place.
+3. every rank updates each of its blocks below the panel on the columns
+   right of it up to the block's last row (a staircase: the columns past
+   it are the upper triangle's), in place, one ``addmm_`` a block.
 
-The substitutions go by rank blocks: each rank's diagonal block is one
-triangular solve, and D broadcasts (forward) or all-reduces (backward) of
-an (N/D, m) block carry the coupling, whatever the panel.
+The substitutions go by blocks in global order: the owner's diagonal block
+is one triangular solve, and D·s broadcasts (forward) or all-reduces
+(backward) of a (block rows, m) piece carry the coupling, whatever the
+panel; a rank's blocks past a block are a suffix of its storage, so each
+step is one ``addmm_`` a rank.
 
 No rank holds the dense N × N matrix: the row blocks of k(X, X) and of the
 crosses k(X, X*) are built inside the shard from the replicated X by
 ``cuda_kernels.kernel_matrix`` (the CUDA kernel on CUDA tensors), with one
 centre computed from the whole X (a per-block centre would give each rank a
 slightly different K) and, for K's row blocks, the exact self-value on the
-global diagonal (``diag_offset``). The panel loop is a host loop: it is the
+global diagonal (``diag_offset`` with one block a rank, else one indexed
+write after the build). The panel loop is a host loop: it is the
 JAX package's unrolled lane, with no ``fori`` lane and no ``unroll`` switch,
 which exist there for XLA's program size; ``unroll=`` is accepted and
 ignored. Every contraction is full fp32 or fp64 (TF32 stays off).
@@ -74,25 +90,67 @@ Tensor = torch.Tensor
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+#: Row blocks a rank holds in the GP level's layout on a mesh of D > 1 (or
+#: the panels it holds, if fewer). The slowest rank's trailing update summed
+#: over the panels at N_pad = 66048, D = 4, P = 128, in units of N³/(3D):
+#: 2.93 at one block, 1.51 / 1.17 / 1.06 / 1.03 at 2 / 4 / 8 / 16, while a
+#: substitution takes D·s collectives. Timed on four H100s at 700 W (the
+#: factor and α at N = 65546, float32): 2.50-2.51 s at one block, 1.19 /
+#: 1.13 / 1.13-1.17 s at 4 / 8 / 16.
+_BLOCKS_PER_RANK = 8
+
+
 class Layout(NamedTuple):
-    """The padded row layout of an N-row history on a mesh."""
+    """The padded row layout of an N-row history on a mesh: N_pad/P panels
+    dealt out to the ranks as row blocks of whole panels (``_layout``)."""
 
     n: int  # the active rows
     n_pad: int  # N padded to the next multiple of D·P
-    rows: int  # rows of one rank's block, N_pad/D
-    row0: int  # this rank's first row
+    rows: int  # rows a rank holds, N_pad/D
+    blocks: Tuple[Tuple[int, int, int, int], ...]  # in global order: (first row, end, owner, first row on the owner)
+    mine: Tuple[Tuple[int, int, int], ...]  # this rank's, in global order: (first row, end, first local row)
+    active: int  # this rank's active rows: the first ones of its storage (the padding is the last global rows)
+    index: Tensor  # (rows,) the global row of each of this rank's rows
+    order: Optional[Tensor]  # (N_pad,) each global row's place in the ranks' rows stacked in rank order
+
+    def gather(self, block: Tensor, mesh: Mesh) -> Tensor:
+        """The row-sharded ``block`` (rows, ...) made whole, in global row
+        order."""
+        whole = gather_rows(block, mesh)
+        return whole if self.order is None else whole[self.order]
 
 
-def _layout(n: int, mesh: Mesh, panel: int) -> Layout:
-    unit = mesh.size * panel
+def _layout(n: int, mesh: Mesh, panel: int, contiguous: bool = False) -> Layout:
+    """N padded to N_pad, the next multiple of D·P, and its N_pad/P panels
+    dealt out as D·s row blocks of whole panels, s a rank: 1 on one device
+    or where ``contiguous`` (the sharded primitives' rank blocks), else
+    ``_BLOCKS_PER_RANK`` or the panels a rank holds, if fewer. Round k gives
+    ranks 0…D−1 a block each (k even) or D−1…0 (k odd); where the panels do
+    not divide evenly the early rounds are a panel wider, so every rank
+    holds N_pad/D rows. The index tensors are on ``mesh.device``."""
+    size, unit = mesh.size, mesh.size * panel
     n_pad = -(-n // unit) * unit
-    rows = n_pad // mesh.size
-    return Layout(n, n_pad, rows, mesh.rank * rows)
-
-
-def _active(lay: Layout) -> int:
-    """This rank's active rows: the first ones of its block."""
-    return min(max(lay.n - lay.row0, 0), lay.rows)
+    rows = n_pad // size
+    per_rank = rows // panel
+    s = 1 if contiguous or size == 1 else max(min(_BLOCKS_PER_RANK, per_rank), 1)
+    base, wide = divmod(per_rank, s)
+    blocks, filled, g = [], [0] * size, 0
+    for k in range(s):
+        width = (base + (k < wide)) * panel
+        for i in range(size):
+            owner = i if k % 2 == 0 else size - 1 - i
+            blocks.append((g, g + width, owner, filled[owner]))
+            filled[owner] += width
+            g += width
+    mine = tuple((g0, g1, l0) for g0, g1, owner, l0 in blocks if owner == mesh.rank)
+    dev = mesh.device
+    index = torch.cat([torch.arange(g0, g1, device=dev) for g0, g1, _ in mine])
+    order = None
+    if s > 1:
+        order = torch.cat([torch.arange(owner * rows + l0, owner * rows + l0 + g1 - g0, device=dev)
+                           for g0, g1, owner, l0 in blocks])
+    active = sum(min(max(n - g0, 0), g1 - g0) for g0, g1, _ in mine)
+    return Layout(n, n_pad, rows, tuple(blocks), mine, active, index, order)
 
 
 def _pad_to(block: Tensor, rows: int) -> Tensor:
@@ -101,78 +159,79 @@ def _pad_to(block: Tensor, rows: int) -> Tensor:
 
 
 def _pad_rows(v: Tensor, lay: Layout) -> Tensor:
-    """This rank's row block of the replicated (N, ...) ``v``, zero on the
-    padded rows."""
-    return _pad_to(v[lay.row0:lay.row0 + lay.rows], lay.rows)
-
-
-def _span(a: int, b: int, row0: int, rows: int) -> Tuple[int, int]:
-    """The local rows [lo, hi) of the global rows [a, b)."""
-    return min(max(a - row0, 0), rows), min(max(b - row0, 0), rows)
+    """This rank's rows of the replicated (N, ...) ``v``, zero on the padded
+    rows."""
+    return _pad_to(v[lay.index[:lay.active]], lay.rows)
 
 
 # --------------------------------------------------------------------------
-# Panel algorithms on the local row block (rows [row0, row0 + rows) of N)
+# Panel algorithms on the rank's rows of a layout
 
 
-def _local_chol(a: Tensor, mesh: Mesh, row0: int, rows: int, panel: int, n: int) -> Tensor:
-    """Blocked right-looking Cholesky of the row-sharded matrix whose block
-    ``a`` is, in place: ``a`` becomes the block of the lower factor."""
-    for c0 in range(0, n, panel):
+def _local_chol(a: Tensor, mesh: Mesh, lay: Layout, panel: int) -> Tensor:
+    """Blocked right-looking Cholesky of the row-sharded matrix whose rows
+    ``a`` holds, in place: ``a`` becomes the rows of the lower factor."""
+    for c0 in range(0, lay.n_pad, panel):
         t0 = c0 + panel
-        col_full = gather_rows(a[:, c0:t0], mesh)  # (n, panel)
-        l_kk = L.cholesky_nan(col_full[c0:t0])[0]
-        lcol = torch.linalg.solve_triangular(l_kk.mT, col_full[t0:], upper=True, left=False)  # rows t0..n
-        lo, hi = _span(c0, t0, row0, rows)
-        a[:lo, c0:t0] = 0.0
-        a[lo:hi, c0:t0] = l_kk[row0 + lo - c0:row0 + hi - c0]
-        if hi < rows:
-            a[hi:, c0:t0] = lcol[row0 + hi - t0:row0 + rows - t0]
-            # the narrow trailing slice of the rows below, on the lower triangle's columns
-            a[hi:, t0:row0 + rows].addmm_(a[hi:, c0:t0], lcol[:row0 + rows - t0].mT, alpha=-1.0)
+        col = lay.gather(a[:, c0:t0], mesh)  # (n_pad, panel), the factor's panel column once filled in
+        l_kk = L.cholesky_nan(col[c0:t0])[0]
+        col[t0:] = torch.linalg.solve_triangular(l_kk.mT, col[t0:], upper=True, left=False)
+        col[c0:t0] = l_kk
+        col[:c0] = 0.0
+        a[:, c0:t0] = col[lay.index]
+        for g0, g1, l0 in lay.mine:
+            if g1 > t0:  # the block's rows below the panel, on the lower triangle's columns up to its last row
+                lo, hi = l0 + max(t0 - g0, 0), l0 + g1 - g0
+                a[lo:hi, t0:g1].addmm_(a[lo:hi, c0:t0], col[t0:g1].mT, alpha=-1.0)
     return a
 
 
-def _local_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int) -> Tensor:
+def _local_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, lay: Layout) -> Tensor:
     """x = L⁻¹ b with L and b (N, m) row-sharded: forward substitution by
-    rank blocks. Rank r solves its diagonal block L_rr (one triangular
-    solve), broadcasts its x_r, and the ranks below take L_jr x_r off their
-    right-hand sides: D broadcasts in all, whatever the panel."""
+    blocks in global order. The block's owner solves its diagonal block
+    (one triangular solve) and broadcasts its piece of x, and every rank
+    takes L_jb x_b off its rows past the block (a suffix of its storage):
+    D·s broadcasts in all, whatever the panel."""
     x = b_loc.clone()
-    for r in range(mesh.size):
-        if mesh.rank == r:
-            x = torch.linalg.solve_triangular(l_loc[:, row0:row0 + rows], x, upper=False)
-            x_r = broadcast_from(x, mesh, src=r)
+    past = 0  # this rank's first row past the block
+    for g0, g1, owner, l0 in lay.blocks:
+        if mesh.rank == owner:
+            past = l0 + g1 - g0
+            x[l0:past] = torch.linalg.solve_triangular(l_loc[l0:past, g0:g1], x[l0:past], upper=False)
+            x_b = broadcast_from(x[l0:past], mesh, src=owner)
         else:
-            x_r = broadcast_from(torch.empty_like(x), mesh, src=r)
-        if mesh.rank > r:
-            x.addmm_(l_loc[:, r * rows:(r + 1) * rows], x_r, alpha=-1.0)
+            x_b = broadcast_from(x.new_empty((g1 - g0, *x.shape[1:])), mesh, src=owner)
+        x[past:].addmm_(l_loc[past:, g0:g1], x_b, alpha=-1.0)
     return x
 
 
-def _local_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, row0: int, rows: int) -> Tensor:
-    """x = L⁻ᵀ b (backward substitution), same layout, by rank blocks from
-    the last: x_r = L_rr⁻ᵀ(b_r − Σ_{j>r} L_jrᵀ x_j), the ranks below r
-    sending their terms and rank r its b_r in one all-reduce (a masked sum,
-    as the JAX package's ``psum``): D all-reduces in all."""
-    x = b_loc
-    for r in reversed(range(mesh.size)):
-        if mesh.rank == r:
-            part = b_loc
-        elif mesh.rank > r:
-            part = -(l_loc[:, r * rows:(r + 1) * rows].mT @ x)
-        else:
-            part = torch.zeros_like(b_loc)
+def _local_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, lay: Layout) -> Tensor:
+    """x = L⁻ᵀ b (backward substitution), same layout, by blocks from the
+    last: x_b = L_bb⁻ᵀ(b_b − Σ_{j past b} L_jbᵀ x_j), every rank sending its
+    rows' terms and the owner its b_b in one all-reduce (a masked sum, as
+    the JAX package's ``psum``): D·s all-reduces in all."""
+    x = b_loc.clone()
+    past = lay.rows
+    for g0, g1, owner, l0 in reversed(lay.blocks):
+        l1 = l0 + g1 - g0
+        part = -(l_loc[past:, g0:g1].mT @ x[past:])
+        if mesh.rank == owner:
+            part += b_loc[l0:l1]
         total = all_sum(part, mesh)
-        if mesh.rank == r:
-            x = torch.linalg.solve_triangular(l_loc[:, row0:row0 + rows].mT, total, upper=True)
+        if mesh.rank == owner:
+            x[l0:l1] = torch.linalg.solve_triangular(l_loc[l0:l1, g0:g1].mT, total, upper=True)
+            past = l0
     return x
+
+
+def _cho_solve(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, lay: Layout) -> Tensor:
+    return _local_solve_upper_t(l_loc, _local_solve_lower(l_loc, b_loc, mesh, lay), mesh, lay)
 
 
 def _block_layout(mat_loc: Tensor, mesh: Mesh, panel: int) -> Layout:
-    """The layout of a row block (rows, N) of the sharded primitives: N a
-    multiple of D·P, no padding."""
-    lay = _layout(mat_loc.shape[-1], mesh, panel)
+    """The layout of a row block (rows, N) of the sharded primitives: one
+    block a rank, N a multiple of D·P, no padding."""
+    lay = _layout(mat_loc.shape[-1], mesh, panel, contiguous=True)
     if lay.n_pad != lay.n:
         raise ValueError(f"N ({lay.n}) must be a multiple of the mesh size times the panel "
                          f"({mesh.size} x {panel})")
@@ -189,26 +248,23 @@ def _block_layout(mat_loc: Tensor, mesh: Mesh, panel: int) -> Layout:
 
 def distributed_cholesky(k_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
     """The row block of the lower factor of SPD K, from K's row block."""
-    lay = _block_layout(k_loc, mesh, panel)
-    return _local_chol(k_loc.clone(), mesh, lay.row0, lay.rows, panel, lay.n)
+    return _local_chol(k_loc.clone(), mesh, _block_layout(k_loc, mesh, panel), panel)
 
 
 def distributed_solve_lower(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
     """x = L⁻¹ b with L and b (N, m) row-sharded alike."""
-    lay = _block_layout(l_loc, mesh, panel)
-    return _local_solve_lower(l_loc, b_loc, mesh, lay.row0, lay.rows)
+    return _local_solve_lower(l_loc, b_loc, mesh, _block_layout(l_loc, mesh, panel))
 
 
 def distributed_solve_upper_t(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128,
                               unroll="auto") -> Tensor:
     """x = L⁻ᵀ b (backward substitution), same layout."""
-    lay = _block_layout(l_loc, mesh, panel)
-    return _local_solve_upper_t(l_loc, b_loc, mesh, lay.row0, lay.rows)
+    return _local_solve_upper_t(l_loc, b_loc, mesh, _block_layout(l_loc, mesh, panel))
 
 
 def distributed_cho_solve(l_loc: Tensor, b_loc: Tensor, mesh: Mesh, panel: int = 128, unroll="auto") -> Tensor:
     """(L Lᵀ)⁻¹ b: forward, then backward substitution."""
-    return distributed_solve_upper_t(l_loc, distributed_solve_lower(l_loc, b_loc, mesh, panel), mesh, panel)
+    return _cho_solve(l_loc, b_loc, mesh, _block_layout(l_loc, mesh, panel))
 
 
 def distributed_gp_posterior(
@@ -221,20 +277,27 @@ def distributed_gp_posterior(
     both sums in one all-reduce. ``alpha_loc`` (rows,) or (rows, 1);
     ``k_cross_loc`` (rows, m) the cross's row block; ``k_diag`` (m,) the
     prior variances k(x*, x*)."""
+    return _posterior(l_loc, alpha_loc, k_cross_loc, k_diag, mesh, _block_layout(l_loc, mesh, panel), mean)
+
+
+def _posterior(l_loc: Tensor, alpha_loc: Tensor, k_cross_loc: Tensor, k_diag: Tensor, mesh: Mesh, lay: Layout,
+               mean) -> Tuple[Tensor, Tensor]:
     a = alpha_loc.reshape(-1)
-    v = distributed_solve_lower(l_loc, k_cross_loc, mesh, panel)
+    v = _local_solve_lower(l_loc, k_cross_loc, mesh, lay)
     parts = all_sum(torch.stack([k_cross_loc.mT @ a, (v * v).sum(dim=0)]), mesh)
     return mean + parts[0], torch.clamp_min(k_diag - parts[1], 1e-12)
 
 
-def _global_diag(l_loc: Tensor, row0: int) -> Tensor:
-    r = torch.arange(l_loc.shape[0], device=l_loc.device)
-    return l_loc[r, row0 + r]
+def _log_diag(l_loc: Tensor, index: Tensor) -> Tensor:
+    """2 Σ log of the factor's global diagonal on this rank's rows (global
+    rows ``index``)."""
+    return 2.0 * torch.log(l_loc[torch.arange(l_loc.shape[0], device=l_loc.device), index]).sum()
 
 
 def distributed_logdet_from_chol(l_loc: Tensor, mesh: Mesh) -> Tensor:
     """log|K| = 2 Σ log diag(L), the diagonal's row blocks all-reduced."""
-    return all_sum(2.0 * torch.log(_global_diag(l_loc, mesh.rank * l_loc.shape[0])).sum(), mesh)
+    rows = l_loc.shape[0]
+    return all_sum(_log_diag(l_loc, mesh.rank * rows + torch.arange(rows, device=l_loc.device)), mesh)
 
 
 # --------------------------------------------------------------------------
@@ -246,13 +309,23 @@ def _kernel_rows(params: Dict[str, Tensor], x: Tensor, lay: Layout, kernel: str,
     the diagonal's values the exact outputscale + bump. A padded row of X
     is zero before the centring, and the one centre, the mean of the active
     rows, is the same on every rank. The padded rows and columns are not
-    masked here (``_mask_padding_``). On a mesh of one device the block is
-    the whole matrix, passed as one tensor: the kernel's symmetric
-    schedule."""
+    masked here (``_mask_padding_``). With one block a rank the kernel
+    writes the diagonal (``diag_offset``), and on a mesh of one device the
+    block is the whole matrix, passed as one tensor: the kernel's symmetric
+    schedule. Dealt-out blocks are one build of the rank's rows, then one
+    indexed write of the diagonal."""
     z = _pad_to(x, lay.n_pad) / params["lengthscale"]
     z = (z - z[:lay.n].mean(dim=0, keepdim=True)).contiguous()
-    z_rows = z if lay.rows == z.shape[0] else z[lay.row0:lay.row0 + lay.rows]
-    return CK.kernel_matrix(z_rows, z, params["outputscale"], bump, kernel, add_noise=True, diag_offset=lay.row0)
+    if lay.order is None:
+        row0 = lay.mine[0][0]
+        z_rows = z if lay.rows == z.shape[0] else z[row0:row0 + lay.rows]
+        return CK.kernel_matrix(z_rows, z, params["outputscale"], bump, kernel, add_noise=True, diag_offset=row0)
+    k_loc = CK.kernel_matrix(z[lay.index], z, params["outputscale"], 0.0, kernel)
+    diag = (torch.arange(lay.rows, device=k_loc.device), lay.index)
+    # in place, but not on the output of the kernel's autograd Function (a view) where the MLL's backward records it
+    if k_loc.requires_grad:
+        return k_loc.index_put(diag, params["outputscale"] + bump)
+    return k_loc.index_put_(diag, params["outputscale"] + bump)
 
 
 def _mask_padding_(k_loc: Tensor, lay: Layout) -> Tensor:
@@ -260,11 +333,10 @@ def _mask_padding_(k_loc: Tensor, lay: Layout) -> Tensor:
     (``linalg.mask_kernel_matrix``'s padding), in place."""
     if lay.n_pad == lay.n:
         return k_loc
-    a = _active(lay)
+    a = lay.active
     k_loc[:, lay.n:] = 0.0
     k_loc[a:] = 0.0
-    r = torch.arange(a, lay.rows, device=k_loc.device)
-    k_loc[r, lay.row0 + r] = 1.0
+    k_loc[torch.arange(a, lay.rows, device=k_loc.device), lay.index[a:]] = 1.0
     return k_loc
 
 
@@ -273,7 +345,7 @@ def _mask_grad_(gk: Tensor, lay: Layout) -> Tensor:
     constants, not the kernel's."""
     if lay.n_pad != lay.n:
         gk[:, lay.n:] = 0.0
-        gk[_active(lay):] = 0.0
+        gk[lay.active:] = 0.0
     return gk
 
 
@@ -288,27 +360,34 @@ def distributed_kernel_chol(
     unroll="auto", jitter: float = 0.0,
 ) -> Tensor:
     """The row block (N_pad/D, N_pad) of the Cholesky factor of k(X, X) +
-    σ²I (+ the relative ``jitter``) over the padded layout (``_layout``:
-    its padded block the identity), built in the shard from the replicated
-    X (N, d): the largest live array is the row block. ``params`` holds
-    "lengthscale", "outputscale" and "noise"."""
-    lay = _layout(x.shape[0], mesh, panel)
+    σ²I (+ the relative ``jitter``) over the padded layout with one block a
+    rank (``_layout``: its padded block the identity), built in the shard
+    from the replicated X (N, d): the largest live array is the row block.
+    ``params`` holds "lengthscale", "outputscale" and "noise"."""
+    return _kernel_chol(params, x, mesh, _layout(x.shape[0], mesh, panel, contiguous=True), panel, kernel, jitter)
+
+
+def _kernel_chol(params: Dict[str, Tensor], x: Tensor, mesh: Mesh, lay: Layout, panel: int, kernel: str,
+                 jitter: float) -> Tensor:
     k_loc = _mask_padding_(_kernel_rows(params, x, lay, kernel, _bump(params, jitter)), lay)
-    return _local_chol(k_loc, mesh, lay.row0, lay.rows, panel, lay.n_pad)
+    return _local_chol(k_loc, mesh, lay, panel)
 
 
 def distributed_cross_covariance(params: Dict[str, Tensor], x: Tensor, xs: Tensor, mesh: Mesh,
                                  kernel: str = "matern52", panel: int = 128) -> Tensor:
-    """The row block of k(X, X*) (N_pad/D × m) over the padded layout
-    (``_layout``; zero on the padded rows), built in the shard; the centre
-    is the dense posterior's, from the whole X and X*."""
-    lay = _layout(x.shape[0], mesh, panel)
+    """The row block of k(X, X*) (N_pad/D × m) over the padded layout with
+    one block a rank (``_layout``; zero on the padded rows), built in the
+    shard; the centre is the dense posterior's, from the whole X and X*."""
+    return _cross_rows(params, x, xs, _layout(x.shape[0], mesh, panel, contiguous=True), kernel)
+
+
+def _cross_rows(params: Dict[str, Tensor], x: Tensor, xs: Tensor, lay: Layout, kernel: str) -> Tensor:
     ls = params["lengthscale"]
     zx, zs = x / ls, xs / ls
     c = 0.5 * (zx.mean(dim=0, keepdim=True) + zs.mean(dim=0, keepdim=True))
     out = CK.kernel_matrix(_pad_rows(zx - c, lay).contiguous(), (zs - c).contiguous(), params["outputscale"], 0.0,
                            kernel, False)
-    out[_active(lay):] = 0.0
+    out[lay.active:] = 0.0
     return out
 
 
@@ -317,18 +396,17 @@ def distributed_cross_covariance(params: Dict[str, Tensor], x: Tensor, xs: Tenso
 
 
 def _mll_parts(raw: G.GPParams, x: Tensor, y_std: Tensor, mesh: Mesh, config: GPConfig,
-               panel: int) -> Tuple[Tensor, Tensor, Tensor]:
+               panel: int) -> Tuple[Tensor, Tensor, Tensor, Layout]:
     """Kernel rows → blocked Cholesky → forward solve (quad = ‖L⁻¹r‖²) →
-    logdet. Returns (mll, L's row block, v = L⁻¹r's row block)."""
+    logdet. Returns (mll, L's rows, v = L⁻¹r's rows, the layout)."""
     lay = _layout(x.shape[0], mesh, panel)
     params = G.constrain_params(raw, config)
     k_loc = _mask_padding_(_kernel_rows(params, x, lay, config.kernel, _bump(params, config.jitter)), lay)
-    l_loc = _local_chol(k_loc, mesh, lay.row0, lay.rows, panel, lay.n_pad)
+    l_loc = _local_chol(k_loc, mesh, lay, panel)
     resid = _pad_rows(y_std - params["mean"], lay)[:, None]
-    v_loc = _local_solve_lower(l_loc, resid, mesh, lay.row0, lay.rows)
-    quad, logdet = all_sum(torch.stack([(v_loc * v_loc).sum(),
-                                        2.0 * torch.log(_global_diag(l_loc, lay.row0)).sum()]), mesh)
-    return -0.5 * (quad + logdet + lay.n * _LOG_2PI), l_loc, v_loc
+    v_loc = _local_solve_lower(l_loc, resid, mesh, lay)
+    quad, logdet = all_sum(torch.stack([(v_loc * v_loc).sum(), _log_diag(l_loc, lay.index)]), mesh)
+    return -0.5 * (quad + logdet + lay.n * _LOG_2PI), l_loc, v_loc, lay
 
 
 class _DistributedMLL(torch.autograd.Function):
@@ -341,8 +419,8 @@ class _DistributedMLL(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, config, panel, x, y_std, *raw_leaves):
-        mll_val, l_loc, v_loc = _mll_parts(G.GPParams(*raw_leaves), x, y_std, mesh, config, panel)
-        alpha_loc = distributed_solve_upper_t(l_loc, v_loc, mesh, panel)[:, 0]
+        mll_val, l_loc, v_loc, lay = _mll_parts(G.GPParams(*raw_leaves), x, y_std, mesh, config, panel)
+        alpha_loc = _local_solve_upper_t(l_loc, v_loc, mesh, lay)[:, 0]
         ctx.mesh, ctx.config, ctx.panel = mesh, config, panel
         ctx.save_for_backward(x, l_loc, alpha_loc, *raw_leaves)
         return mll_val
@@ -352,12 +430,11 @@ class _DistributedMLL(torch.autograd.Function):
         mesh, config, panel = ctx.mesh, ctx.config, ctx.panel
         x, l_loc, alpha_loc, *raw_leaves = ctx.saved_tensors
         lay = _layout(x.shape[0], mesh, panel)
-        r = torch.arange(lay.rows, device=x.device)
         eye_loc = torch.zeros((lay.rows, lay.n_pad), dtype=l_loc.dtype, device=l_loc.device)
-        eye_loc[r, lay.row0 + r] = 1.0
-        kinv_loc = distributed_cho_solve(l_loc, eye_loc, mesh, panel)
+        eye_loc[torch.arange(lay.rows, device=l_loc.device), lay.index] = 1.0
+        kinv_loc = _cho_solve(l_loc, eye_loc, mesh, lay)
         del eye_loc
-        alpha = gather_rows(alpha_loc, mesh)
+        alpha = lay.gather(alpha_loc, mesh)
         # the in-shard build assigns every entry of K once across the ranks
         gk = _mask_grad_((0.5 * g) * (alpha_loc[:, None] * alpha[None, :] - kinv_loc), lay)
         del kinv_loc
@@ -448,8 +525,9 @@ def fit_distributed_gp(x: Tensor, y: Tensor, mesh: Mesh, config: GPConfig = GPCo
 class DistributedGP:
     """Exact GP whose O(N²) state is row-sharded over a mesh: the twin of
     ``gp.make_gp_state``/``gp_posterior`` when N outgrows a device. x and y
-    are replicated, of any N; the factor and α are row blocks of the padded
-    layout (``layout``: N_pad/D rows each, zero α on the padded rows).
+    are replicated, of any N; the factor and α are the rank's rows of the
+    padded layout (``layout``: N_pad/D rows each, dealt out in blocks, zero
+    α on the padded rows; ``layout.gather`` makes them whole).
 
         dgp = DistributedGP(mesh, kernel="matern52", panel=128)
         dgp.fit(x, y, lengthscale, outputscale, noise)
@@ -474,37 +552,41 @@ class DistributedGP:
             kw = dict(dtype=x.dtype, device=x.device)
             self.x, self.y = x, y
             self.layout = _layout(x.shape[0], self.mesh, self.panel)
+            if self.layout.order is not None:
+                with span("dlinalg.blocked_layout"):  # a counter: this factorization runs on dealt-out blocks
+                    pass
             self.params = {"lengthscale": torch.as_tensor(lengthscale, **kw),
                            "outputscale": torch.as_tensor(outputscale, **kw), "noise": torch.as_tensor(noise, **kw)}
             self.mean = torch.as_tensor(mean, **kw)
             with span("linalg.cholesky_ladder"):
                 for scale in (1.0, 1e2, 1e4):
                     with span("linalg.cholesky_rung"):
-                        chol = distributed_kernel_chol(self.params, x, self.mesh, self.panel, self.kernel,
-                                                       jitter=self.jitter * scale)
+                        chol = _kernel_chol(self.params, x, self.mesh, self.layout, self.panel, self.kernel,
+                                            self.jitter * scale)
                     with span("sync.dlinalg.ladder"):
                         finite = all_true(torch.isfinite(chol).all(), self.mesh)
                     if finite:
                         break
             self.chol = chol
-            self.alpha = distributed_cho_solve(chol, self._rows(y - self.mean)[:, None], self.mesh, self.panel)
+            self.alpha = _cho_solve(chol, self._rows(y - self.mean)[:, None], self.mesh, self.layout)
             return self
 
     def _rows(self, v: Tensor) -> Tensor:
-        """This rank's row block of the replicated (N, ...) ``v``, zero on
-        the padded rows."""
+        """This rank's rows of the replicated (N, ...) ``v``, zero on the
+        padded rows."""
         return _pad_rows(v, self.layout)
 
     def posterior(self, xs: Tensor) -> Tuple[Tensor, Tensor]:
         """(μ, σ²) at ``xs`` in the standardization's units, replicated."""
-        k_cross = distributed_cross_covariance(self.params, self.x, xs, self.mesh, self.kernel, self.panel)
-        mu, var = distributed_gp_posterior(self.chol, self.alpha, k_cross, K.kernel_diag(self.params, xs),
-                                           self.mesh, self.panel, self.mean)
+        k_cross = _cross_rows(self.params, self.x, xs, self.layout, self.kernel)
+        mu, var = _posterior(self.chol, self.alpha, k_cross, K.kernel_diag(self.params, xs), self.mesh, self.layout,
+                             self.mean)
         return self.y_mean + self.y_sd * mu, var * self.y_sd**2
 
     def mll(self) -> Tensor:
-        quad = all_sum(self._rows(self.y - self.mean) @ self.alpha[:, 0], self.mesh)
-        return -0.5 * (quad + distributed_logdet_from_chol(self.chol, self.mesh) + self.layout.n * _LOG_2PI)
+        quad, logdet = all_sum(torch.stack([self._rows(self.y - self.mean) @ self.alpha[:, 0],
+                                            _log_diag(self.chol, self.layout.index)]), self.mesh)
+        return -0.5 * (quad + logdet + self.layout.n * _LOG_2PI)
 
     def pathwise_paths(self, xs: Tensor, n_paths: int, n_features: int = 1024,
                        generator: Optional[torch.Generator] = None, draws: A.Draws = A.Draws()) -> Tensor:
@@ -531,7 +613,7 @@ def distributed_pathwise_paths(dgp: DistributedGP, xs: Tensor, n_paths: int, n_f
     with span("acq.sample"):
         mesh, x, p, lay = dgp.mesh, dgp.x, dgp.params, dgp.layout
         n, dim = x.shape
-        rows = slice(lay.row0, lay.row0 + lay.rows)  # the rank's active rows of a replicated (N, ...) value
+        rows = lay.index[:lay.active]  # the rank's active rows of a replicated (N, ...) value
         kw = dict(dtype=xs.dtype, device=xs.device)
         omega, b = draws.omega, draws.b
         if omega is None or b is None:
@@ -544,8 +626,8 @@ def distributed_pathwise_paths(dgp: DistributedGP, xs: Tensor, n_paths: int, n_f
         # the (N/D, M) φ block, never a global (N, M)
         phi_rows = A._rff_phi(x[rows], omega, b, ls, p["outputscale"])
         rhs = _pad_to((dgp.y[rows] - dgp.mean)[:, None] - phi_rows @ w.mT - eps.mT[rows], lay.rows)
-        u = distributed_cho_solve(dgp.chol, rhs, mesh, dgp.panel)  # (N_pad/D, n_paths)
-        k_cross = distributed_cross_covariance(p, x, xs, mesh, dgp.kernel, dgp.panel)  # (N_pad/D, n_cand)
+        u = _cho_solve(dgp.chol, rhs, mesh, lay)  # (N_pad/D, n_paths)
+        k_cross = _cross_rows(p, x, xs, lay, dgp.kernel)  # (N_pad/D, n_cand)
         update = all_sum(k_cross.mT @ u, mesh)  # (n_cand, n_paths)
         prior_c = w @ A._rff_phi(xs, omega, b, ls, p["outputscale"]).mT  # (n_paths, n_cand)
         return dgp.y_mean + dgp.y_sd * (dgp.mean + prior_c + update.mT)
