@@ -62,7 +62,8 @@ non-zero and the final line is not printed:
    distributed GP's blocks at N = 16384: the whole matrix of a mesh of one
    device and an 8192-row block of a mesh of two), each
    against its plain version (CUDA events) with its device
-   time (torch.profiler), its bound and share and, for ts_cov, the time of
+   time (torch.profiler, by ``portbench/trace.py``'s recipe), its bound
+   (``portbench/yardstick/bounds.py``) and share and, for ts_cov, the time of
    ``v.mT @ v`` alone; then one ``bench.py``-style iteration (N = 2000 in a
    2048 buffer, 5000 candidates, EI, Thompson q = 10 in chunks of 1000)
    with the kernels and with the plain versions; ``bo._append_batch``'s
@@ -154,7 +155,6 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import time
 import zlib
@@ -177,10 +177,9 @@ def _require(cond: bool, what: str) -> None:
 def phase0_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: chip_smoke.py needs a CUDA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    from turbojax_torch.kernel_bench import card
+
+    smi = card()
     print(smi, flush=True)
     _emit({"phase": 0, "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
            "python": sys.version.split()[0], "device": torch.cuda.get_device_name(0),

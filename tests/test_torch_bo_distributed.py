@@ -132,6 +132,28 @@ def test_pathwise_ts_optimizes():
     assert float(res.best_y) < 0.05
 
 
+def test_dense_adapter_draws_the_dense_samplers_paths():
+    """The dense route's adapter draws pathwise paths as ``acq.pathwise_paths``
+    does on its state, with the same generator state and ``A.Draws``, bit for
+    bit: the loop calls ``g.pathwise_paths`` on either route."""
+    from turbojax_torch import acq as A
+    from turbojax_torch import distributed_linalg as DL
+    from turbojax_torch import gp as G
+    from turbojax_torch import linalg as L
+
+    gen = _gen(3)
+    x = torch.rand((20, D), generator=gen, dtype=torch.float64)
+    y = _quad(x) + 0.01 * torch.randn(20, generator=gen, dtype=torch.float64)
+    mask = L.row_mask(20, 20, x.device)
+    state = G.make_gp_state(x, y, mask, G.default_params(D, CFG, torch.float64, x.device), CFG)
+    adapter = DL._adapt_dense(state, y, mask, CFG)
+    cands = torch.rand((32, D), generator=gen, dtype=torch.float64)
+    draws = A.Draws(weights=torch.randn((4, 64), generator=gen, dtype=torch.float64))
+    got = adapter.pathwise_paths(cands, 4, 64, _gen(7), draws)
+    want = A.pathwise_paths(state, cands, 4, CFG, 64, _gen(7), draws)
+    assert got.shape == (4, 32) and torch.equal(got, want)
+
+
 def test_supports_y_warp():
     bo = BOConfig(n_init=16, max_evals=48, batch_size=8, acq="ei", n_candidates=128)
     res = BD.run_bo_distributed(lambda x: 50.0 * _quad(x) + 1.0, [0.0] * D, [1.0] * D, bo,

@@ -26,8 +26,7 @@ block of the factor the identity's and α zero there; at N = 32 with
 panels of 12 (padded on every D) the unpadded route's values at panels
 of 4; ``run_bo_distributed`` with q = 3, forced distributed, visits the
 points of the dense route on one device. A factorization records its
-spans (``dlinalg.factor``, its ladder, rungs and reads) nested, and
-``dlinalg.blocked_layout`` once on D > 1.
+spans (``dlinalg.factor``, its ladder, rungs and reads) nested.
 
 The GP level deals its rows out in blocks (``distributed_linalg._layout``:
 at N = 30 with panels of 4, four blocks a rank on D = 2 and two on D = 4,
@@ -367,15 +366,12 @@ def test_run_bo_distributed_with_q3_visits_the_dense_points(results, world, acq)
 @pytest.mark.parametrize("world", WORLDS)
 def test_a_distributed_factorization_records_its_spans(results, world):
     """One ``dlinalg.factor`` holding one ladder, one rung and one read of
-    the all-reduced flag here (the first rung succeeds), and on D > 1 one
-    ``dlinalg.blocked_layout`` (the rows dealt out in blocks), none on
-    D = 1."""
+    the all-reduced flag here (the first rung succeeds)."""
     got, _ = _case(results, world, "factor_spans")
     counts = {k: int(got[k]) for k in ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung",
                                        "sync.dlinalg.ladder")}
     assert counts == {"dlinalg.factor": 1, "linalg.cholesky_ladder": 1, "linalg.cholesky_rung": 1,
                       "sync.dlinalg.ladder": 1}
-    assert int(got["dlinalg.blocked_layout"]) == int(world > 1)
     assert got["nested"].all(), got["nested"]
 
 

@@ -4,6 +4,7 @@ configurations field for field), and its transforms equal
 ``turbojax.transforms`` on the cases of ``tests/test_transforms.py``
 (f64, rtol 1e-12)."""
 
+import ast
 import dataclasses
 import os
 import subprocess
@@ -46,6 +47,48 @@ def test_port_and_chip_smoke_import_no_jax():
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _port_imports():
+    """{module: the modules it imports anywhere in its file, function-local
+    imports too} over ``turbojax_torch/``; ``from turbojax_torch import name``
+    names the module ``turbojax_torch.name`` where there is one, else the
+    package (whose ``__init__`` imports ``api``)."""
+    pkg = os.path.join(ROOT, "turbojax_torch")
+    modules = {}
+    for folder, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(folder, f), ROOT)[:-3].split(os.sep)
+                modules[".".join(rel[:-1] if rel[-1] == "__init__" else rel)] = os.path.join(folder, f)
+    graph = {}
+    for name, path in modules.items():
+        out = set()
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                out.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                out.update(f"{node.module}.{a.name}" if f"{node.module}.{a.name}" in modules else node.module
+                           for a in node.names)
+        graph[name] = out
+    return graph
+
+
+def test_imports_point_down():
+    """No module that ``api`` reaches through its imports imports ``api``
+    back, and only the three card tools import the benchmark's yardstick."""
+    graph = _port_imports()
+    seen, todo = set(), ["turbojax_torch.api"]
+    while todo:
+        for dep in graph.get(todo.pop(), ()):
+            if dep in graph and dep not in seen:
+                seen.add(dep)
+                todo.append(dep)
+    back = sorted(m for m in seen if {"turbojax_torch.api", "turbojax_torch"} & graph[m])
+    assert back == []
+    tools = {"turbojax_torch.kernel_bench", "turbojax_torch.bench_large_n", "turbojax_torch.profile_config5"}
+    users = {m for m, deps in graph.items() if any(d.split(".")[0] == "portbench" for d in deps)}
+    assert users <= tools, sorted(users - tools)
 
 
 def _fields(cfg, drop=()):

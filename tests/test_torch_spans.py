@@ -6,7 +6,6 @@ time these names."""
 
 import contextlib
 import dataclasses
-from types import SimpleNamespace
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -18,7 +17,6 @@ from turbojax_torch import linalg as L
 from turbojax_torch import runlog as RL
 from turbojax_torch.bo_distributed import run_bo_distributed
 from turbojax_torch.config import GPConfig
-from turbojax_torch.profile_config5 import _device_split
 
 torch.set_num_threads(1)
 
@@ -160,24 +158,3 @@ def test_span_is_one_null_context_without_a_profiler():
             torch.ones(4).sum()
     assert isinstance(recording, record_function)
     assert [s[0] for s in _spans(prof)] == ["test.recorded"]
-
-
-def _evt(key, self_device_us, cpu_us=0.0):
-    return SimpleNamespace(key=key, self_device_time_total=self_device_us, cpu_time_total=cpu_us)
-
-
-def test_device_split_leaves_out_every_span_by_the_traces_names():
-    """``profile_config5._device_split`` counts the kernels' own device time
-    and leaves out the device-side annotations of whatever spans the trace
-    holds on the host, new names among them."""
-    cpu = torch.autograd.DeviceType.CPU
-    host = [SimpleNamespace(name=n, device_type=cpu, is_user_annotation=True)
-            for n in ("gp.factor", "sync.linalg.ladder", "turbom.fit[2x100]")]
-    host.append(SimpleNamespace(name="aten::mm", device_type=cpu, is_user_annotation=False))
-    averages = [_evt("gp.factor", 5000.0), _evt("sync.linalg.ladder", 300.0), _evt("turbom.fit[2x100]", 900.0),
-                _evt("void kernel_trsm_l_mul32", 2000.0), _evt("sm80_xmma_gemm_f32", 1000.0),
-                _evt("aten::mm", 0.0, 50.0)]
-    prof = SimpleNamespace(events=lambda: host, key_averages=lambda: averages)
-    busy_ms, families = _device_split(prof)
-    assert busy_ms == 3.0
-    assert families == {"triangular solve": 2.0, "GEMM": 1.0}

@@ -207,11 +207,9 @@ def factor_spans(mesh, x, y, raw, config, panel):
         outers = [s for s in spans if s[0] == outer]
         return all(any(o[1] <= s[1] and s[2] <= o[2] for o in outers) for s in spans if s[0] == inner)
 
-    names = ("dlinalg.factor", "dlinalg.blocked_layout", "linalg.cholesky_ladder", "linalg.cholesky_rung",
-             "sync.dlinalg.ladder")
+    names = ("dlinalg.factor", "linalg.cholesky_ladder", "linalg.cholesky_rung", "sync.dlinalg.ladder")
     out = {name: np.asarray(sum(1 for s in spans if s[0] == name)) for name in names}
     out["nested"] = np.asarray([inside("linalg.cholesky_ladder", "dlinalg.factor"),
-                                inside("dlinalg.blocked_layout", "dlinalg.factor"),
                                 inside("linalg.cholesky_rung", "linalg.cholesky_ladder"),
                                 inside("sync.dlinalg.ladder", "linalg.cholesky_ladder")])
     return out

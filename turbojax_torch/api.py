@@ -45,17 +45,6 @@ class Result:
     incumbent_trace: np.ndarray  # best-so-far after each batch (each tell)
 
 
-def _resolve_device(device, what: str) -> torch.device:
-    """``device`` or, by default, the GPU; raises when that is not there."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{what} runs on the GPU unless told otherwise, and torch.cuda.is_available() is False; "
-            'pass device="cpu" to run on the CPU'
-        )
-    return device
-
-
 def bo_result(res: BO.BOResult) -> Result:
     """A ``run_bo`` result at the package boundary (numpy, active rows only)."""
     n = res.n
@@ -145,18 +134,13 @@ def optimize(
     ``generator`` must agree with it. Every rank gets the whole result."""
     if method not in ("bo", "turbo1", "turbom"):
         raise ValueError(f"unknown method {method!r}")
-    if mesh is not None:
-        if method not in ("bo", "turbom"):
-            raise ValueError(
-                "mesh= supports method='bo' (row-block-sharded distributed surrogate) and method='turbom' "
-                "(trust-region axis sharded via parallel.run_turbom_sharded); turbo1 has no device axis to "
-                "shard; use the candidate-axis helpers in turbojax_torch.parallel"
-            )
-        device = PAR.mesh_device(mesh, device, generator)
-    if generator is None:
-        generator = torch.Generator(device=_resolve_device(device, "optimize")).manual_seed(seed)
-    elif device is not None and not PAR.same_device(device, generator.device):
-        raise ValueError(f"device {device} differs from the generator's {generator.device}")
+    if mesh is not None and method not in ("bo", "turbom"):
+        raise ValueError(
+            "mesh= supports method='bo' (row-block-sharded distributed surrogate) and method='turbom' "
+            "(trust-region axis sharded via parallel.run_turbom_sharded); turbo1 has no device axis to "
+            "shard; use the candidate-axis helpers in turbojax_torch.parallel"
+        )
+    generator = PAR.run_generator(device, generator, mesh, seed, "optimize")
 
     lb_t, ub_t = tuple(float(v) for v in lb), tuple(float(v) for v in ub)
     dim = len(lb_t)
@@ -257,7 +241,7 @@ class Optimizer:
             raise ValueError("ask/tell supports methods 'bo', 'turbo1' and 'turbom'")
         self._ckpt_path = checkpoint_path
         self._ckpt_every = checkpoint_every
-        self.device = _resolve_device(device, "Optimizer")
+        self.device = PAR.resolve_device(device, "Optimizer")
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self._dtype = torch.float32
         self.lb = np.asarray(lb, np.float32)

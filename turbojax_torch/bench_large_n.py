@@ -24,12 +24,9 @@ Each row: the median wall of ``reps`` warm calls, each ended by
 of ``torch.cuda.max_memory_allocated`` over those calls in GiB (the inputs
 and the cached state included).
 
-``--profile-iteration`` traces, with ``torch.profiler``, the second
-iteration of ``chip_smoke.py``'s pathwise loop (16384 initial points, the
-example objective of ``turbojax_torch/examples/run_distributed_bo.py``,
-5000 candidates, q = 10, a 5-step Adam fit every iteration): its wall, the
-device's busy time and idle share, device time by kernel family, and the
-fit's backward (the autograd engine's nodes).
+One traced pathwise-loop iteration at N = 16384 (5-step Adam refit, q = 10)
+is the benchmark's traced cell: ``python3 -m portbench.run --workload
+bo_ackley10_16k.refit --seed <n> --seconds 30 --trace 1``.
 
 ``--budget`` measures the peak device memory of the default dense fit
 (L-BFGS, 4 restarts; one iteration, whose loss evaluations all have the
@@ -71,7 +68,6 @@ GRID = dataclasses.replace(CONFIG, fit_optimizer="grid")
 RULE_GRID_NS = (1024, 2048, 4096, 8192, 16384)
 # (N, candidates): the cross matrix from 0.16 to 2.6 GB, across the 1 GiB rule
 RULE_POSTERIOR_CASES = ((8192, 5000), (16384, 5000), (16384, 16000), (16384, 24000), (16384, 40000))
-PROFILED_N_INIT = 16384  # chip_smoke.py's pathwise loop
 _GIB = float(2**30)
 
 
@@ -240,50 +236,6 @@ def budget_rows(smi: str, ns: Sequence[int] = NS, emit: Callable[[Dict[str, obje
         torch.cuda.empty_cache()
 
 
-class _Stop(Exception):
-    """Ends the loop right after the traced iteration."""
-
-
-def profile_loop_iteration(smi: str, emit: Callable[[Dict[str, object]], None] = print) -> None:
-    """Trace the second iteration of the pathwise Thompson loop of
-    ``PROFILED_N_INIT`` initial points (see the module docstring)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from turbojax_torch.bo import BOConfig
-    from turbojax_torch.bo_distributed import run_bo_distributed
-    from turbojax_torch.examples.run_distributed_bo import objective
-    from turbojax_torch.profile_config5 import _device_split, _device_us
-
-    n_init, k = PROFILED_N_INIT, 1
-    bo = BOConfig(n_init=n_init, max_evals=n_init + (k + 1) * Q, batch_size=Q, acq="ts", n_candidates=N_CAND)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    marks = {}
-
-    def on_iteration(it: int, best: float) -> None:
-        if it == k - 1:
-            torch.cuda.synchronize()
-            prof.start()
-            marks["t0"] = time.perf_counter()
-        elif it == k:
-            torch.cuda.synchronize()
-            marks["wall"] = time.perf_counter() - marks["t0"]
-            prof.stop()
-            raise _Stop
-
-    try:
-        run_bo_distributed(objective, [0.0] * DIM, [1.0] * DIM, bo, ADAM5, on_iteration=on_iteration,
-                           generator=torch.Generator(device="cuda").manual_seed(0))
-    except _Stop:
-        pass
-    wall_ms = marks["wall"] * 1e3
-    busy_ms, families = _device_split(prof)
-    backward_ms = sum(_device_us(evt) for evt in prof.key_averages()
-                      if evt.key.startswith("autograd::engine::evaluate_function")) / 1e3
-    emit({"profiled_iteration": k, "n": n_init + k * Q, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ms_by_kernel_family": families,
-          "fit_backward_device_ms": backward_ms, "card": smi})
-
-
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(what)
@@ -297,7 +249,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--ns", type=int, nargs="+", default=list(NS))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rules", action="store_true", help="only the grid-branch and posterior-chunk measurements")
-    ap.add_argument("--profile-iteration", action="store_true", help="only the traced pathwise-loop iteration")
     ap.add_argument("--budget", action="store_true",
                     help="only the default dense fit's peak memory at each N (DENSE_BUDGET_BYTES)")
     args = ap.parse_args(argv)
@@ -311,8 +262,6 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.rules:
         rules(smi, args.reps, emit)
-    elif args.profile_iteration:
-        profile_loop_iteration(smi, emit=emit)
     elif args.budget:
         budget_rows(smi, args.ns, emit)
     else:

@@ -42,7 +42,6 @@ from turbojax_torch import gp as G
 from turbojax_torch import parallel as PAR
 from turbojax_torch import sampling as S
 from turbojax_torch import transforms as T
-from turbojax_torch.api import _resolve_device
 from turbojax_torch.bo import BOConfig, lowest_k
 from turbojax_torch.config import GPConfig
 from turbojax_torch.distributed_linalg import DENSE_BUDGET_BYTES, DistributedGP, fit_gp_auto, refactor_gp_auto
@@ -134,12 +133,7 @@ def run_bo_distributed(
             "ts_sampler='pathwise' (or leave the default: 'ts' always routes to the pathwise sampler here)"
         )
     n_dev = mesh.size if mesh is not None else 1
-    if mesh is not None:
-        device = PAR.mesh_device(mesh, device, generator)
-    if generator is None:
-        generator = torch.Generator(device=_resolve_device(device, "run_bo_distributed")).manual_seed(0)
-    elif device is not None and not PAR.same_device(device, generator.device):
-        raise ValueError(f"device {device} differs from the generator's {generator.device}")
+    generator = PAR.run_generator(device, generator, mesh, 0, "run_bo_distributed")
     device = generator.device
     dim = len(lb)
     lb_t = torch.tensor(tuple(lb), dtype=dtype, device=device)
@@ -222,10 +216,7 @@ def run_bo_distributed(
                 # pathwise draws, globally joint over the candidates, conditioned
                 # exactly through the cached (dense or row-sharded) factor; the
                 # warp is monotone in y, so the argmin selection is unchanged
-                if distributed:
-                    values = g.pathwise_paths(cands, q, bo.rff_features, generator, d_it.ts)
-                else:
-                    values = A.pathwise_paths(g.state, cands, q, config, bo.rff_features, generator, d_it.ts)
+                values = g.pathwise_paths(cands, q, bo.rff_features, generator, d_it.ts)
                 x_new = cands[A.select_q_batch(values)[0]]
             else:
                 # the surrogate predicts warp_y(y), so the EI incumbent is warped

@@ -552,9 +552,6 @@ class DistributedGP:
             kw = dict(dtype=x.dtype, device=x.device)
             self.x, self.y = x, y
             self.layout = _layout(x.shape[0], self.mesh, self.panel)
-            if self.layout.order is not None:
-                with span("dlinalg.blocked_layout"):  # a counter: this factorization runs on dealt-out blocks
-                    pass
             self.params = {"lengthscale": torch.as_tensor(lengthscale, **kw),
                            "outputscale": torch.as_tensor(outputscale, **kw), "noise": torch.as_tensor(noise, **kw)}
             self.mean = torch.as_tensor(mean, **kw)
@@ -678,6 +675,11 @@ class _DenseGPAdapter:
         convention)."""
         return G.mll(self.state.raw, self.state.x_buf, self._y_std_buf, self.state.mask, self.config)
 
+    def pathwise_paths(self, xs: Tensor, n_paths: int, n_features: int = 1024,
+                       generator: Optional[torch.Generator] = None, draws: A.Draws = A.Draws()) -> Tensor:
+        """Decoupled pathwise draws at ``xs``: ``acq.pathwise_paths``."""
+        return A.pathwise_paths(self.state, xs, n_paths, self.config, n_features, generator, draws)
+
 
 def _adapt_dense(state: G.GPState, y: Tensor, mask: Tensor, config: GPConfig) -> _DenseGPAdapter:
     y_std_buf, _, _ = T.standardize(T.warp_y(y, config.y_warp), mask)
@@ -712,8 +714,8 @@ def fit_gp_auto(
     """Fit an exact GP on the unmasked history ``(x, y)``, routed by
     ``should_distribute``: the dense ``gp.fit_gp`` (multi-restart, its
     optimizer) or ``fit_distributed_gp`` (Adam over the row-sharded MLL).
-    Returns an object with ``.posterior(xs) -> (mu, var)``, ``.mll()`` and
-    ``.raw`` (pass it back as ``warm_start`` for the next refit). Where the
+    Returns an object with ``.posterior(xs) -> (mu, var)``, ``.mll()``,
+    ``.pathwise_paths(xs, n_paths, ...)`` and ``.raw`` (pass it back as ``warm_start`` for the next refit). Where the
     JAX package takes a key, the dense route takes the restart draws:
     ``generator`` or ``restart_uniforms``, as ``gp.fit_gp`` does."""
     n = x.shape[0]

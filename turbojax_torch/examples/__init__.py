@@ -29,9 +29,9 @@ def add_device_flag(ap: argparse.ArgumentParser) -> None:
 def generator(device, seed: int = 0) -> torch.Generator:
     """A generator seeded with ``seed`` on ``device`` (default: the GPU,
     which must be there)."""
-    from turbojax_torch.api import _resolve_device
+    from turbojax_torch.parallel import resolve_device
 
-    return torch.Generator(device=_resolve_device(device, "the example")).manual_seed(seed)
+    return torch.Generator(device=resolve_device(device, "the example")).manual_seed(seed)
 
 
 @contextlib.contextmanager

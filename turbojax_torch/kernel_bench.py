@@ -8,11 +8,12 @@
 For each shape (float32, and the f64 Thompson lane's shapes in float64) one
 JSON line: the kernel's time and the plain version's by
 CUDA events over back-to-back calls (at small shapes that is the host's
-time per call), the kernel's device time per call from ``torch.profiler``,
-the bound (the larger of the bytes over 3.35 TB/s and the operations over
-67 TFLOP/s, an H100 SXM's peak in fp32 outside the tensor cores and in fp64
-on them) with the resource
-that sets it, the kernel's share of it, and ``library_ms`` (events) and
+time per call), the kernel's device time per call from ``torch.profiler``
+(the device operations' summed durations, ``portbench/trace.py``'s
+recipe), the bound (``portbench/yardstick/bounds.py``: the larger of the
+bytes over 3.35 TB/s and the operations over 67 TFLOP/s, an H100 SXM's
+peak in fp32 outside the tensor cores and in fp64 on them) with the
+resource that sets it, the kernel's share of it, and ``library_ms`` (events) and
 ``library_device_ms`` (profiler), one PyTorch call's time where one
 computes a comparable function (``v.mT @ v`` for ts_cov's Gram part; none
 for the kernel matrix). Then the
@@ -49,12 +50,6 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from turbojax_torch import cuda_kernels as CK
-
-HBM_BYTES_PER_S = 3.35e12
-# fp64's peak is the tensor cores' (DMMA is exact fp64; cuBLAS's DGEMM runs
-# above the 34 TFLOP/s of the fp64 CUDA cores), fp32's is outside them (TF32
-# is not fp32)
-FLOPS_PER_S = 67e12
 
 # (label, batch, n, m, d, K(Z, Z), kernel function): config 5's grid at the
 # 2000 and 512 rungs, its polish forward and cached factor, the small
@@ -125,38 +120,15 @@ KM_OFFSET_SHAPES = [
 KM_HEADLINE, TS_HEADLINE = KM_SHAPES[0][0], TS_SHAPES[0][0]
 KM_LARGE_HEADLINE, TS_LARGE_HEADLINE = "large_kxx_16384x16384_d10", "large_1x1000_n16384_d10"
 KM_F64_HEADLINE, TS_F64_HEADLINE = KM_F64_SHAPES[0][0], TS_F64_SHAPES[0][0]
-_EPILOGUE_OPS = 12  # per distinct entry: d² from the norms, clamp, sqrt, exp and the polynomial
 
 
 def card() -> str:
+    """The card's ``nvidia-smi`` name and power limit, which every line of
+    the card tools carries."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-
-
-def _bound(nbytes: float, ops: float) -> Dict[str, object]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FLOPS_PER_S
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
-
-
-def kernel_matrix_bound(batch, n, m, d, same, dtype=torch.float32) -> Dict[str, object]:
-    """Each input read once, the output written once; 2d + 12 operations
-    per distinct entry (K(Z, Z) has n(n+1)/2 of them)."""
-    size = torch.finfo(dtype).bits // 8
-    entries = batch * (n * (n + 1) // 2 if same else n * m)
-    nbytes = size * batch * (n * d + (0 if same else m * d) + n * m)
-    return _bound(nbytes, entries * (2 * d + _EPILOGUE_OPS))
-
-
-def ts_cov_bound(batch, m, n, d, dtype=torch.float32) -> Dict[str, object]:
-    """zs and v read once, the output written once; 2(n + d) + 12 operations
-    per distinct entry of the symmetric output."""
-    size = torch.finfo(dtype).bits // 8
-    entries = batch * m * (m + 1) // 2
-    nbytes = size * batch * (m * d + n * m + m * m)
-    return _bound(nbytes, entries * (2 * (n + d) + _EPILOGUE_OPS))
 
 
 def _event_ms(fn: Callable[[], object], reps: int) -> float:
@@ -184,20 +156,24 @@ def in_turns(fns: Dict[str, Callable[[], object]], reps: int, warmup: int = 3) -
 
 
 def device_ms(fn: Callable[[], object], reps: int) -> Optional[float]:
-    """Device time per call from torch.profiler: the kernels' and copies'
-    own time over ``reps`` calls. None when the profiler saw no device time."""
+    """Device time per call from torch.profiler: the summed durations of the
+    device operations (kernels, copies, sets) that ``reps`` calls launch,
+    by ``portbench.trace``'s recipe, the per-layer metrics' own. None when
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from turbojax_torch.profile_config5 import _self_device_us
+    from portbench import trace as PT
+    from turbojax_torch.runlog import span
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages() if e.cpu_time_total == 0)
-    return us / 1e3 / reps if us > 0 else None
+        with span(PT.WINDOW_SPAN):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    s = PT.device_s(PT.collect(prof).ops)
+    return 1e3 * s / reps if s > 0 else None
 
 
 def _inputs_km(gen, batch, n, m, d, same, dtype=torch.float32):
@@ -238,6 +214,8 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
     cuda_kernels module, in turns), and the kernel matrix at
     KM_OFFSET_SHAPES (with no baseline: ``diag_offset`` is this PR's); returns {label: line} and passes each
     line to ``emit`` as it is measured."""
+    from portbench.yardstick.bounds import kernel_matrix_bound, ts_cov_bound
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     lines = {}
     mods = {"kernel": CK, **({"baseline": baseline} if baseline is not None else {})}
@@ -250,8 +228,8 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
         dev = device_ms(fns["kernel"], reps)
         base_dev = device_ms(fns["baseline"], reps) if baseline is not None else None
         dims = {"batch": batch, "n": n, "m": m, "d": d, "same": same, "kernel_fn": kfn, "dtype": str(dtype)[6:]}
-        lines[label] = _line("kernel_matrix", label, dims, kernel_matrix_bound(batch, n, m, d, same, dtype), times,
-                             dev, base_dev, smi)
+        bound = kernel_matrix_bound(batch, n, m, d, same, torch.finfo(dtype).bits // 8)
+        lines[label] = _line("kernel_matrix", label, dims, bound, times, dev, base_dev, smi)
         emit(lines[label])
         del z1, z2
     for label, rows, n, d, off in KM_OFFSET_SHAPES:
@@ -278,8 +256,8 @@ def measure_kernels(smi: str, baseline=None, reps: int = 20, emit=print) -> Dict
         plan = CK.ts_cov_plan(batch, m, n, d, dtype=dtype)
         dims = {"batch": batch, "m": m, "n": n, "d": d, "splits": plan.splits, "chunk": plan.chunk,
                 "dtype": str(dtype)[6:]}
-        lines[label] = _line("ts_cov", label, dims, ts_cov_bound(batch, m, n, d, dtype), times, dev, base_dev, smi,
-                             device_ms(fns["library"], reps))
+        bound = ts_cov_bound(batch, m, n, d, torch.finfo(dtype).bits // 8)
+        lines[label] = _line("ts_cov", label, dims, bound, times, dev, base_dev, smi, device_ms(fns["library"], reps))
         emit(lines[label])
     return lines
 
@@ -391,6 +369,8 @@ def chol_inverse(smi: str, n: int = CHOL_INVERSE_N, reps: int = 5) -> Dict[str, 
     triangular product n³/3) over 67 TFLOP/s; ``torch.cholesky_inverse``'s
     times as ``library_ms`` and ``library_device_ms``, and the two results'
     largest difference over the inverse's largest entry."""
+    from portbench.yardstick import bounds as YB
+
     from turbojax_torch import linalg as L
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -402,7 +382,7 @@ def chol_inverse(smi: str, n: int = CHOL_INVERSE_N, reps: int = 5) -> Dict[str, 
     del ours, lib
     times = in_turns(fns, reps, warmup=1)
     dev = device_ms(fns["plain"], reps)
-    bound = _bound(2.0 * 4 * n * n, 2.0 * n**3 / 3)  # L read once, the inverse written once
+    bound = YB.bound(2.0 * 4 * n * n, 2.0 * n**3 / 3)  # L read once, the inverse written once
     return {"routine": "chol_inverse", "n": n, "dtype": "float32", "base": L._CHOL_INVERSE_BASE, **bound,
             "ms": times["plain"], "device_ms": dev, "share_of_bound": bound["bound_ms"] / dev if dev else None,
             "library_ms": times["library"], "library_device_ms": device_ms(fns["library"], reps),

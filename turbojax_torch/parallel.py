@@ -167,6 +167,32 @@ def evaluate_on_rank0(fn: Callable[[Tensor], Tensor], x: Tensor, mesh: Mesh) -> 
     return broadcast_from(y, mesh)
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """``device`` or, by default, the GPU; raises when that is not there."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on the GPU unless told otherwise, and torch.cuda.is_available() is False; "
+            'pass device="cpu" to run on the CPU'
+        )
+    return device
+
+
+def run_generator(device, generator: Optional[torch.Generator], mesh: Optional[Mesh], seed: int,
+                  what: str) -> torch.Generator:
+    """The generator a run draws from, whose device is the run's: with a
+    mesh, ``device`` and ``generator`` must be on the mesh's device; without
+    a generator, one seeded with ``seed`` on ``device`` (``resolve_device``);
+    a given generator must be on ``device`` where that is given too."""
+    if mesh is not None:
+        device = mesh_device(mesh, device, generator)
+    if generator is None:
+        return torch.Generator(device=resolve_device(device, what)).manual_seed(seed)
+    if device is not None and not same_device(device, generator.device):
+        raise ValueError(f"device {device} differs from the generator's {generator.device}")
+    return generator
+
+
 def mesh_device(mesh: Mesh, device=None, generator: Optional[torch.Generator] = None) -> torch.device:
     """The device a run on ``mesh`` uses, the mesh's; a ``device`` or a
     ``generator`` given beside the mesh must be on the same one."""

@@ -18,24 +18,24 @@ and ``--max-evals`` (the names of ``benchmarks/campaign_rover.py``) change
 the configuration's loop settings; the run then goes through
 ``run_turbo1``/``run_turbom`` with the changed ``TurboConfig``.
 ``--profile-iteration K`` runs config 5's seed 0 (with the TuRBO options
-above) up to iteration K, traces
-iteration K with ``torch.profiler`` and prints its split: the device's busy
-time and idle share, device time by kernel family (Cholesky, triangular
-solves, GEMM, the two hand-written kernels), the polish backward's device
-time, and the host time inside each span the trace holds (``runlog.span``:
-the fit, polish-backward, Thompson, TS-covariance, ladder and sync spans
-among them). ``--profile-run`` traces one whole run of ``--config``
-(seed 0, after an untraced run; meant for the short configurations) and
-prints its wall, the device's busy time and idle share. Every line carries the card's ``nvidia-smi`` name and
-power limit. Needs a CUDA GPU.
+above) up to iteration K and traces iteration K with ``torch.profiler``;
+``--profile-run`` traces one whole run of ``--config`` (seed 0, after an
+untraced run; meant for the short configurations). Either prints the
+trace's split by ``portbench/trace.py``, the benchmark's recipe: the
+window, the device's busy time (the union of the device operations'
+intervals) and idle share, the device operations that took most time and
+the idle gaps by host operation (the ledger's ``breakdown``), the polish
+backward's device time (launched under ``gp.polish_backward``) and the
+host time inside each span the trace holds (``runlog.span``). Every line
+carries the card's ``nvidia-smi`` name and power limit. Needs a CUDA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 from typing import List, Optional
@@ -45,26 +45,14 @@ import torch
 
 from turbojax_torch import benchmarks as B
 from turbojax_torch import cuda_kernels as CK
+from turbojax_torch import kernel_bench as KB
 from turbojax_torch import registry as R
 from turbojax_torch import turbo_m as TM
-
-_FAMILIES = {  # kernel-name fragment -> family
-    "ts_cov_partial": "ts_cov kernel", "ts_cov_gram": "ts_cov kernel", "ts_cov_finish": "ts_cov kernel",
-    "kernel_matrix_tile": "kernel_matrix kernel",
-    "potrf": "Cholesky", "cholesky": "Cholesky", "trsm": "triangular solve",
-    "gemm": "GEMM", "gemv": "GEMM",
-}
+from turbojax_torch.runlog import span
 
 
 class _Stop(Exception):
     """Ends a run right after the traced iteration."""
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def _run(seed: int, on_iteration=None, **turbo_options):
@@ -161,62 +149,43 @@ def regret_over_seeds(name: str, seeds: List[int], card: str, **turbo_options) -
     return median
 
 
-def _self_device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
+def _report(trace) -> dict:
+    """A trace's split by ``portbench/trace.py``, the benchmark's own
+    recipe: the device's busy time (the union of the device operations'
+    intervals) over the window, the device operations that took most time
+    and the idle gaps by host operation (the ledger's ``breakdown``), the
+    polish backward's device time (launched under ``gp.polish_backward``,
+    as ``fit_backward_ms`` reads it) and the host time inside each span."""
+    from portbench import trace as PT
 
-
-def _device_us(evt) -> float:
-    for name in ("device_time_total", "cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
-def _span_names(prof) -> set:
-    """The names of the trace's spans: its host-side user annotations."""
-    cpu = torch.autograd.DeviceType.CPU
-    return {evt.name for evt in prof.events() if evt.device_type == cpu and evt.is_user_annotation}
-
-
-def _device_split(prof):
-    """(busy ms, {kernel family: ms}) of a trace: the own time of the
-    device-side entries. The kernels, copies and sets have no CPU time; the
-    spans' device-timeline annotations, named as the trace's own spans, are
-    not work."""
-    families, busy_ms = {}, 0.0
-    spans = _span_names(prof)
-    for evt in prof.key_averages():
-        own = _self_device_us(evt) / 1e3
-        if own > 0 and evt.cpu_time_total == 0 and evt.key not in spans:
-            busy_ms += own
-            fam = next((f for frag, f in _FAMILIES.items() if frag in evt.key.lower()), "elementwise and other")
-            families[fam] = families.get(fam, 0.0) + own
-    return busy_ms, families
+    busy, window = PT.busy_s(trace), PT.window_s(trace)
+    host_ms = {}
+    for sp in trace.spans:
+        host_ms[sp.name] = host_ms.get(sp.name, 0.0) + (sp.end_ns - sp.start_ns) / 1e6
+    return {"window_s": window, "busy_s": busy, "device_idle_share": 1.0 - busy / window,
+            "breakdown": PT.breakdown(trace),
+            "polish_backward_device_s": PT.device_s(PT.launched_under(trace, "gp.polish_backward")),
+            "host_ms_by_span": host_ms}
 
 
 def profile_iteration(k: int, card: str, trace_path: Optional[str] = None, **turbo_options) -> None:
-    """Trace iteration ``k`` of seed 0. Reported: its wall; the device's busy
-    time (the kernels' own time) and idle share; device time by kernel
-    family; the polish backward's device time (the autograd engine's
-    nodes, which run on the engine's thread); and the host time inside each
-    span (where the wall goes while the host binds). ``trace_path`` also
-    writes the Chrome trace there."""
+    """Trace iteration ``k`` of seed 0 and print its ``_report``;
+    ``trace_path`` also writes the Chrome trace there."""
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench import trace as PT
+
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    marks = {}
+    window = contextlib.ExitStack()
 
     def on_iteration(it: int, best: torch.Tensor) -> None:
         if it == k - 1:
             torch.cuda.synchronize()
             prof.start()
-            marks["t0"] = time.perf_counter()
+            window.enter_context(span(PT.WINDOW_SPAN))
         elif it == k:
             torch.cuda.synchronize()
-            marks["wall"] = time.perf_counter() - marks["t0"]
+            window.close()
             prof.stop()
             raise _Stop
 
@@ -224,42 +193,26 @@ def profile_iteration(k: int, card: str, trace_path: Optional[str] = None, **tur
         _run(0, on_iteration, **turbo_options)
     except _Stop:
         pass
-    wall_ms = marks["wall"] * 1e3
-    host_ms = {}
-    spans = _span_names(prof)
-    for evt in prof.events():  # the spans' host time, on the CPU timeline
-        if evt.device_type == torch.autograd.DeviceType.CPU and evt.name in spans:
-            host_ms[evt.name] = host_ms.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-    backward_ms = sum(_device_us(evt) for evt in prof.key_averages()
-                      if evt.key.startswith("autograd::engine::evaluate_function")) / 1e3
-    busy_ms, families = _device_split(prof)
-    print(json.dumps({
-        "profiled_iteration": k, "options": turbo_options, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ms_by_kernel_family": families,
-        "polish_backward_device_ms": backward_ms, "host_ms_by_span": host_ms, "card": card,
-    }), flush=True)
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30), flush=True)
+    print(json.dumps({"profiled_iteration": k, "options": turbo_options, **_report(PT.collect(prof)), "card": card}),
+          flush=True)
     if trace_path:
         prof.export_chrome_trace(trace_path)
 
 
 def profile_run(name: str, card: str) -> None:
     """Trace one whole run of a configuration (seed 0) after an untraced
-    one: its wall, the device's busy time (the kernels' own time) and idle
-    share, and device time by kernel family."""
+    one and print its ``_report``."""
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench import trace as PT
 
     run_config(name, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_config(name, 0)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    busy_ms, families = _device_split(prof)
-    print(json.dumps({"profiled_run": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                      "device_idle_share": 1.0 - busy_ms / wall_ms, "device_ms_by_kernel_family": families,
-                      "card": card}), flush=True)
+        with span(PT.WINDOW_SPAN):
+            run_config(name, 0)
+            torch.cuda.synchronize()
+    print(json.dumps({"profiled_run": name, **_report(PT.collect(prof)), "card": card}), flush=True)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -280,7 +233,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                  ("max_evals", args.max_evals)) if v is not None}
     if not torch.cuda.is_available():
         raise RuntimeError("profile_config5 measures the card: torch.cuda.is_available() is False")
-    card = _card()
+    card = KB.card()
     if args.profile_iteration is not None:
         profile_iteration(args.profile_iteration, card, args.trace, **options)
     if args.profile_run:
